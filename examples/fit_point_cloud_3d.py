@@ -1,5 +1,5 @@
 """SVGP surface completion on the four RECORDED point clouds (reference
-``example/3D/torch/fit_point_could.py`` — VERDICT r3 #9): fit z(x, y) with
+``example/3D/torch/fit_point_could.py``): fit z(x, y) with
 a 1000-inducing-point sparse variational GP per object and evaluate the
 completed surface on a 100x100 grid over the cloud's xy bounding box
 (the scale of ``sensors/surface_pointcloud_detector.py:149``).

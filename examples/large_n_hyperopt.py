@@ -7,12 +7,10 @@ throws data away (greedy subset selection) and still fits only the subset.
 This example runs the same workload shape — a dense surface-scan point
 cloud regressed to heights + greedy subset selection — but the hyperopt is
 ``models.exact_gp.fit_blocked``: compiled L-BFGS whose value-and-grad is
-the closed-form panel LML (``ops/blocked_lml.py``), ~32 ms/step at
-N=10240 on one v5e chip.
+the closed-form panel LML (``ops/blocked_lml.py``).
 
 Run:  python examples/large_n_hyperopt.py [--cpu] [--n 2048] [--cap 1024]
-      (defaults sized for --cpu interpret mode; on a real TPU try
-       --n 40000 --cap 16384)
+      (defaults sized for --cpu; on a GPU try --n 40000 --cap 16384)
 """
 import argparse
 import os
@@ -44,8 +42,7 @@ def main():
         GaussianProcessActiveLearning,
     )
 
-    on_tpu = jax.default_backend() == "tpu"
-    block = args.block or (512 if on_tpu else 128)
+    block = args.block or (512 if jax.devices()[0].platform == "gpu" else 128)
 
     # synthetic cleaning-surface scan: wavy height field + sensor noise
     # (the reference's surface pointcloud detector workload shape)
@@ -67,9 +64,7 @@ def main():
         kernel,
         n_samples_max=args.cap,
         use_blocked=True,
-        blocked_kwargs=dict(
-            block=block, maxiter=args.maxiter, interpret=not on_tpu
-        ),
+        blocked_kwargs=dict(block=block, maxiter=args.maxiter),
     )
     t0 = time.perf_counter()
     model.fit(Xy, z)

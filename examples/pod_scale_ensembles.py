@@ -1,8 +1,8 @@
 """Pod-scale capabilities demo: sharded transport ensembles + NUTS
 hyperparameter chains (the new first-class layers, SURVEY.md §2d).
 
-Runs on whatever devices exist — one TPU chip, a v5p slice, or a virtual
-CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8).
+Runs on whatever devices exist — one GPU, the GPUs of one host, or a
+virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8).
 
 Run:  python examples/pod_scale_ensembles.py [--cpu] [--members 4096]
 """

@@ -1,6 +1,6 @@
 """SVGP-heteroscedastic uncertainty after transport (reference
 ``example/2D/torch/surface_generalization_svgp_heteroschedastic_uncertainty.py``,
-246 LoC — VERDICT r3 #9): transport the policy with the sparse variational
+246 LoC): transport the policy with the sparse variational
 GP transport (20 inducing points, reference line 123), fit an aleatoric GP
 on the SVGP's transported velocity-variance labels (lines 143-155), and
 combine with the epistemic std of the re-fit C*Matern(2.5)+White dynamics

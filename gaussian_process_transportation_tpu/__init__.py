@@ -1,28 +1,23 @@
-"""TPU-native Gaussian Process Transportation framework.
+"""Gaussian Process Transportation framework in JAX.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A JAX re-design of the capabilities of
 ``gaussian_process_transportation`` (TU Delft, arXiv:2404.13458): policy
 transportation via affine + GP-residual maps with uncertainty-aware
 position / velocity / orientation push-forward, sparse variational GPs,
-alternative delta-map models, obstacle-avoidance modulation, and pod-scale
-ensembles/samplers sharded over a TPU mesh.
+alternative delta-map models, obstacle-avoidance modulation, and ensembles
+and samplers sharded over a device mesh.
 """
-
-import os as _os
 
 import jax as _jax
 
-# TPUs default to bfloat16 MXU passes for float32 matmuls.  For GP
-# numerics that is catastrophic, not just sloppy: the Gram matrix loses
-# positive-definiteness and Cholesky NaNs the whole pipeline (and the
-# blocked matmuls INSIDE XLA's cholesky/triangular-solve are equally
-# affected, which per-dot precision overrides cannot reach).  Default the
-# whole package to float32-accurate matmuls; override with
-# GPT_TPU_MATMUL_PRECISION=default if a workload wants raw bf16 speed.
-_jax.config.update(
-    "jax_default_matmul_precision",
-    _os.environ.get("GPT_TPU_MATMUL_PRECISION", "highest"),
-)
+# Float32 matmuls may otherwise run in a reduced-precision mode (TF32 on
+# NVIDIA tensor cores: a 10-bit mantissa).  For GP numerics that is
+# catastrophic, not just sloppy: the Gram matrix loses positive-
+# definiteness and the Cholesky NaNs the whole pipeline, and the matmuls
+# inside XLA's blocked cholesky/triangular-solve are equally affected,
+# which per-dot precision overrides cannot reach.  So the whole package
+# runs float32-accurate matmuls.
+_jax.config.update("jax_default_matmul_precision", "highest")
 
 from . import kernels
 from .models import (

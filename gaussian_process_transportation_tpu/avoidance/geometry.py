@@ -14,7 +14,7 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 Array = jax.Array
 

@@ -43,6 +43,29 @@ def load_reach_target(path: Optional[str] = None) -> Dict:
     return {"x": list(demos["x"]), "A": list(demos["A"]), "b": list(demos["b"])}
 
 
+def make_reach_target(seed: int = 0, n_demos: int = 9, T: int = 100) -> Dict:
+    """Seeded stand-in for the reach_target dataset, in the format of
+    :func:`load_reach_target`: every demo runs from a random start frame to
+    a random goal frame (two 2-D frames, fixed over time) along a smooth
+    arc.  ``np.save(path, make_reach_target(), allow_pickle=True)`` writes a
+    file ``load_reach_target(path)`` reads."""
+    rng = np.random.default_rng(seed)
+    s = np.linspace(0.0, 1.0, T)[:, None]
+    xs, As, bs = [], [], []
+    for _ in range(n_demos):
+        ang = rng.uniform(-np.pi, np.pi, 2)
+        R = np.stack([[np.cos(ang), -np.sin(ang)], [np.sin(ang), np.cos(ang)]])
+        R = np.transpose(R, (2, 0, 1))                       # (2 frames, 2, 2)
+        b = rng.uniform(-20.0, 20.0, (2, 2))
+        chord = b[1] - b[0]
+        normal = np.array([-chord[1], chord[0]]) / np.linalg.norm(chord)
+        bump = rng.uniform(-0.3, 0.3) * np.linalg.norm(chord)
+        xs.append(b[0] + s * chord + np.sin(np.pi * s) * bump * normal)
+        As.append(np.broadcast_to(R, (T, 2, 2, 2)).copy())
+        bs.append(np.broadcast_to(b, (T, 2, 2)).copy())
+    return {"x": xs, "A": As, "b": bs}
+
+
 def distribution_from_frames(
     A: List, b: List, frame_dim: float = 5.0
 ) -> np.ndarray:
@@ -97,17 +120,18 @@ def random_gp_surface(
     amplitude: float = 0.2,
 ) -> jnp.ndarray:
     """(n, n, 3) random smooth surface: z ~ GP(0, RBF) sampled on a grid via
-    Cholesky (``example/3D/surface_generator.py:24-33``)."""
-    g = jnp.linspace(-extent, extent, n)
-    gx, gy = jnp.meshgrid(g, g)
-    pts = jnp.stack([gx.ravel(), gy.ravel()], axis=1)
-    from ..kernels import RBF, Constant
+    Cholesky (``example/3D/surface_generator.py:24-33``).
 
-    k = Constant(amplitude**2) * RBF(lengthscale * jnp.ones(2))
-    K = k(pts) + 1e-8 * jnp.eye(pts.shape[0])
-    L = jnp.linalg.cholesky(K)
-    z = L @ jax.random.normal(key, (pts.shape[0],))
-    return jnp.stack([gx, gy, z.reshape(n, n)], axis=-1)
+    The grid Gram is numerically rank-deficient, so its Cholesky is taken
+    on the host in float64 whatever JAX's default dtype."""
+    g = np.linspace(-extent, extent, n)
+    gx, gy = np.meshgrid(g, g)
+    pts = np.stack([gx.ravel(), gy.ravel()], axis=1)
+    d2 = (((pts[:, None, :] - pts[None, :, :]) / lengthscale) ** 2).sum(-1)
+    K = amplitude**2 * np.exp(-0.5 * d2) + 1e-8 * np.eye(pts.shape[0])
+    L = np.linalg.cholesky(K)
+    z = L @ np.asarray(jax.random.normal(key, (pts.shape[0],)), np.float64)
+    return jnp.asarray(np.stack([gx, gy, z.reshape(n, n)], axis=-1))
 
 
 def spiral_demo(

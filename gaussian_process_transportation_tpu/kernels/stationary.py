@@ -1,14 +1,14 @@
 """Stationary covariance kernels as JAX pytrees.
 
-Design notes (TPU-first):
+Design notes:
 
-* A kernel is an immutable ``flax.struct`` dataclass whose *array leaves are
+* A kernel is an immutable pytree dataclass (``utils.pytree``) whose *array leaves are
   the hyperparameters*.  ``jax.grad`` with respect to the kernel object
   therefore differentiates the Gram matrix w.r.t. the hyperparameters with no
   extra plumbing, and ``vmap`` over a batch of kernels gives batched
   (ensemble / multi-restart) Gram construction for free.
 * Gram matrices are built with the ``||x||^2 + ||z||^2 - 2 x.z`` expansion so
-  the O(N^2 D) work is a single matmul that XLA tiles onto the MXU.  (The
+  the O(N^2 D) work is a single matmul.  (The
   reference uses sklearn's pairwise distances on CPU:
   ``policy_transportation/models/gaussian_process.py:42``.)
 * ``theta`` exposes the hyperparameters as a flat log-space vector with
@@ -28,7 +28,7 @@ from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 Array = jax.Array
 
@@ -39,16 +39,13 @@ def _sqdist(X: Array, Z: Array) -> Array:
     """Pairwise squared Euclidean distances.
 
     For the small input dimensions of this domain (D ≤ 8: 2D/3D poses,
-    quaternion features) the per-dimension broadcast-difference form wins
-    on TPU: the matmul expansion contracts over K=D, which pads the MXU
-    contraction to 128 (≈40× wasted passes; measured 10 ms of a 19 ms
-    N=10240 Gram+Cholesky pipeline), while D unrolled differences fuse
-    into ONE VPU pass — and are exact (no x²−2xz+z² cancellation, which
-    at bf16/f32 on workspace-scale coordinates |x|~50 can even break
-    positive-definiteness).
+    quaternion features) D unrolled differences fuse into one elementwise
+    pass and are exact (no x²−2xz+z² cancellation, which on
+    workspace-scale coordinates |x|~50 can break positive-definiteness);
+    a matmul expansion would contract over a tiny K=D.
 
     Larger D falls back to the matmul expansion at HIGHEST precision
-    (bf16 MXU passes corrupt the Gram — see git history)."""
+    (reduced-precision passes corrupt the Gram)."""
     D = X.shape[-1]
     if D <= 8:
         d2 = None
@@ -163,10 +160,8 @@ class Kernel:
         """∂k(x_i, Z_j)/∂x_d in query-last layout: shape (D, M, N).
 
         Same values as ``dx`` transposed, but subclasses build it natively
-        so the large query axis stays minormost — on TPU a (N, M, D) array
-        with small trailing dims pads each (M, D) tile to (8, 128), blowing
-        up HBM traffic; (D, M, N) keeps padding negligible.  Used by the
-        batched transport hot path.
+        so the large query axis stays minormost and contiguous.  Used by
+        the batched transport hot path.
         """
         return jnp.transpose(self.dx(x, Z), (2, 1, 0))
 

@@ -16,7 +16,7 @@ from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import pytree as struct
 
 Array = jax.Array
 
@@ -98,8 +98,7 @@ def fit_batched(
 
     For D=2 the SO(2) optimum has a closed form — the angle maximizing
     tr(R Hᵀ) is atan2(H01 − H10, H00 + H11), identical to the SVD +
-    reflection-fix result — which avoids E tiny batched SVD custom calls
-    on TPU (~15 ms at E=8192 on v5e, vs ~0.1 ms closed-form).  Other D
+    reflection-fix result — which avoids E tiny batched SVDs.  Other D
     fall back to the vmapped SVD path.
     """
     source_points = jnp.asarray(source_points)

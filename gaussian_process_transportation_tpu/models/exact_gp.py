@@ -1,4 +1,4 @@
-"""Exact Gaussian-process regression, TPU-native.
+"""Exact Gaussian-process regression.
 
 Functional core: a fitted GP is an immutable pytree (``ExactGP``) produced by
 ``condition``/``fit``; prediction, sampling and the derivative (Jacobian)
@@ -13,8 +13,9 @@ Reference parity targets:
   gradient of the predictive variance (104-126).
 
 The Gram build + Cholesky + triangular solves are the FLOP hot path; they
-are expressed as single large matmul/chol ops so XLA maps them to the MXU,
-and can be swapped for the fused Pallas kernels in ``ops.pallas_gram``.
+are expressed as single large matmul/chol ops (cuBLAS/cuSOLVER on a GPU).
+``condition_blocked`` conditions through the panel Cholesky of
+``ops.blocked_chol`` instead, for the panel-form consumers.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
+from ..utils import pytree as struct
 
 from ..kernels import Kernel, RBF, White, Constant, Sum, Product, Matern
 from ..kernels.stationary import DEFAULT_BOUNDS
@@ -38,8 +39,8 @@ from ..ops.linalg import (
     tri_solve_lower,
 )
 
-# GP posterior algebra must not run through TPU bf16 MXU passes — the
-# accumulated error is far above the "within-MC-error" parity gate.
+# GP posterior algebra must not run through reduced-precision (TF32/bf16)
+# matmul passes — the accumulated error is far above the parity gates.
 _HI = jax.lax.Precision.HIGHEST
 
 Array = jax.Array
@@ -52,11 +53,10 @@ class ExactGP:
     """Posterior state of an exact GP: p(f | X, Y, kernel).
 
     Exactly one of ``L`` (dense lower Cholesky) or ``chol`` (panel-form
-    :class:`~..ops.blocked_chol.BlockedCholesky`, the large-N TPU path)
+    :class:`~..ops.blocked_chol.BlockedCholesky`, the large-N path)
     is set.  The panel form keeps only the lower-triangle column panels
     plus diagonal-block inverses — the (N, N) dense factor never exists
-    in HBM, and every downstream solve is blocked GEMMs instead of
-    triangular-solve custom calls.
+    in device memory, and every downstream solve is blocked GEMMs.
     """
 
     kernel: Kernel
@@ -64,13 +64,12 @@ class ExactGP:
     Y: Array  # (N, P) training targets
     alpha: Array  # (N, P) = K^{-1} Y
     L: Optional[Array] = None  # (N, N) lower Cholesky of K(X,X)+jitter I
-    chol: Optional[BlockedCholesky] = None  # panel factor (large-N TPU path)
+    chol: Optional[BlockedCholesky] = None  # panel factor (large-N path)
     # Optional cached K^{-1} (the reference's own cache, gaussian_process.py:42-43).
-    # When present, predict/jacobian variances use MXU matmuls against it
-    # instead of per-query triangular solves — on TPU the batched tiny
-    # triangular solves dominate the transport hot path, while N×Nq matmuls
-    # ride the systolic array.  Worth it when Nq >> N and N is small/medium;
-    # skip for large-N fits (O(N²) memory, O(N³) extra solve).
+    # When present, predict/jacobian variances use matmuls against it
+    # instead of per-query triangular solves.  Worth it when Nq >> N and N
+    # is small/medium; skip for large-N fits (O(N²) memory, O(N³) extra
+    # solve).
     K_inv: Optional[Array] = None
     jitter: float = struct.field(pytree_node=False, default=1e-10)
 
@@ -105,14 +104,6 @@ def _eff_jitter(dtype, jitter: float) -> float:
     return jitter
 
 
-# Route condition() through the Pallas-panel blocked Cholesky above this N
-# on TPU (f32, RBF family): ~2× the builtin's TFLOP/s at N=10240 (measured
-# 15 ms vs ~30 ms for gram+chol+solve on v5e-1).  The reference's
-# active-learning cap (gaussian_process_al.py:16) makes N=20 000 the
-# realistic ceiling.
-_BLOCKED_CHOL_MIN_N = 4096
-
-
 def condition(
     kernel: Kernel,
     X: Array,
@@ -123,18 +114,10 @@ def condition(
     """Form the GP posterior for fixed hyperparameters (jittable).
 
     ``cache_k_inv=True`` additionally stores K⁻¹ so downstream variance
-    queries become matmuls (see :class:`ExactGP`)."""
+    queries become matmuls (see :class:`ExactGP`).  One dense Cholesky at
+    every N: on the H100 it beat the panel form at N = 2500, 10240 and
+    20000 (``PERF.md``)."""
     Y2 = Y if Y.ndim == 2 else Y[:, None]
-    params = stationary_family_params(kernel)
-    if (
-        params is not None
-        and X.ndim == 2
-        and X.shape[0] >= _BLOCKED_CHOL_MIN_N
-        and X.dtype == jnp.float32
-        and jax.default_backend() == "tpu"
-    ):
-        return condition_blocked(kernel, X, Y2, jitter=jitter,
-                                 cache_k_inv=cache_k_inv)
     K = add_diagonal(kernel(X), _eff_jitter(X.dtype, jitter))
     L = jnp.linalg.cholesky(K)
     alpha = cho_solve_lower(L, Y2)
@@ -153,17 +136,15 @@ def condition_blocked(
     jitter: float = 1e-10,
     cache_k_inv: bool = False,
     block: int = 512,
-    interpret: Optional[bool] = None,
 ) -> ExactGP:
-    """Large-N conditioning through the Pallas panel Cholesky.
+    """Large-N conditioning through the panel Cholesky.
 
     The returned GP carries the factor in panel form (``chol``) — the
-    (N, N) dense L is never materialized (VERDICT r2 #2), and every
-    downstream variance/covariance query (``predict(return_std=True)``,
+    (N, N) dense L is never materialized, and every downstream
+    variance/covariance query (``predict(return_std=True)``,
     :func:`predict_cov`, :func:`jacobian` variance,
     :func:`variance_gradient`) runs through blocked-GEMM substitution
-    against the retained diagonal-block inverses instead of
-    triangular-solve custom calls.
+    against the retained diagonal-block inverses.
 
     Requires the C·stationary(+White) kernel family (RBF/Matern); callers
     gate on :func:`stationary_family_params`.
@@ -173,16 +154,12 @@ def condition_blocked(
 
     fam, amp, ls = stationary_family_params(kernel)
     noise = white_noise_level(kernel) + _eff_jitter(X.dtype, jitter)
-    # HIGHEST, not HIGH: at GP-realistic conditioning (κ ≳ 1e5, e.g. the
-    # reference's N=2500 3D surfaces with small White noise) the bf16x3
-    # factor's iterative refinement DIVERGES (measured α rel err 0.9-13 at
-    # HIGH vs 4e-3 at HIGHEST, scripts/bench_ensemble_3d.py); the GEMM
-    # speedup is not worth a silent blow-up in the production model path.
-    # bench.py's cholesky stage still requests HIGH explicitly on its
-    # better-conditioned workload (validated 1e-3 vs f64 there).
+    # HIGHEST: at GP-realistic conditioning (κ ≳ 1e5, e.g. the reference's
+    # N=2500 3D surfaces with small White noise) a reduced-precision factor
+    # is not rescued by iterative refinement
     alpha, ch = gram_cholesky_solve(
         X, Y2, ls, amp, noise, block=block,
-        precision=jax.lax.Precision.HIGHEST, interpret=interpret, family=fam,
+        precision=jax.lax.Precision.HIGHEST, family=fam,
     )
     K_inv = None
     if cache_k_inv:
@@ -200,10 +177,7 @@ def log_marginal_likelihood(
 ) -> Array:
     """log p(Y | X, kernel), summed over output columns (sklearn semantics).
 
-    For small N (≤ 64) this routes through :func:`_lml_small`, which (a)
-    factorizes with ``ops.batched_linalg.small_cholesky`` so vmapped
-    hyperparameter ensembles / restarts / MCMC chains run the Cholesky
-    ensemble-last on the VPU instead of tile-padded custom calls, and (b)
+    For small N (≤ 64) this routes through :func:`_lml_small`, which
     carries the textbook analytic gradient ``½ tr((ααᵀ − P·K⁻¹) ∂K)`` as a
     custom VJP, so reverse-mode never differentiates through the Cholesky.
     """
@@ -225,23 +199,19 @@ def _lml_small(kernel: Kernel, X: Array, Y2: Array, jitter: float) -> Array:
 
 
 def _lml_small_fwd(kernel, X, Y2, jitter):
-    from ..ops.batched_linalg import small_cholesky, small_cho_solve
-
     n, p = X.shape[0], Y2.shape[1]
     K = add_diagonal(kernel(X), jitter)
-    L = small_cholesky(K)
-    alpha = small_cho_solve(L, Y2)
+    L = jnp.linalg.cholesky(K)
+    alpha = cho_solve_lower(L, Y2)
     quad = jnp.sum(Y2 * alpha)
     val = -0.5 * quad - p * (0.5 * log_det_from_chol(L) + 0.5 * n * _LOG_2PI)
     return val, (kernel, X, Y2, L, alpha)
 
 
 def _lml_small_bwd(jitter, res, g):
-    from ..ops.batched_linalg import small_cho_solve
-
     kernel, X, Y2, L, alpha = res
     n, p = X.shape[0], Y2.shape[1]
-    K_inv = small_cho_solve(L, jnp.eye(n, dtype=L.dtype))
+    K_inv = cho_solve_lower(L, jnp.eye(n, dtype=L.dtype))
     # dLML/dK = ½(ααᵀ − P·K⁻¹); pull back through the Gram build only —
     # no AD through the factorization.
     W = 0.5 * (jnp.dot(alpha, alpha.T, precision=_HI) - p * K_inv)
@@ -311,7 +281,7 @@ def stationary_family_params(kernel: Kernel):
     C·stationary(+White) transport family — RBF or Matern(ν∈{½,3/2,5/2}) —
     None otherwise.  The reference's canonical policy-DS kernel is
     ``C(0.1)*Matern(ν=2.5)+White`` (``example/2D/surface_generalization.py:49``),
-    so the large-N fast paths must accept the whole family (VERDICT r2 #3).
+    so the large-N paths accept the whole family.
 
     White contributes nothing to cross-covariances, so it is ignored for
     the k(X*, X) fast path."""
@@ -392,20 +362,6 @@ def small_lml_theta_layout(kernel: Kernel):
     return family, n_ls, has_noise, np.asarray(perm)
 
 
-# Route the dense-grid posterior mean through the fused Pallas kernel when
-# the (Nq × N) Gram would be this many elements or more — below it the XLA
-# path's fusion is already fine and the pallas_call overhead dominates.
-_FUSED_PREDICT_MIN_ELEMS = 2**21
-
-
-def _use_fused_predict(gp: ExactGP, x: Array) -> bool:
-    if jax.default_backend() != "tpu":
-        return False
-    if x.ndim != 2 or gp.X.ndim != 2:  # batched/vmapped layouts keep XLA
-        return False
-    return x.shape[0] * gp.X.shape[0] >= _FUSED_PREDICT_MIN_ELEMS
-
-
 def predict(
     gp: ExactGP,
     x: Array,
@@ -419,45 +375,7 @@ def predict(
     reproducing the reference's convention
     (``models/gaussian_process.py:49``).
 
-    Dense-grid means (the reference's 100×100-grid vector fields,
-    ``plot_utils.py:181-207``) route through the fused Pallas kernel
-    (``ops.pallas_gram.fused_gp_predict_mean``) on TPU at Nq·N ≥ 2²¹ —
-    the (Nq, N) Gram never touches HBM.
     """
-    params = stationary_family_params(gp.kernel) if _use_fused_predict(gp, x) else None
-    if params is not None and not return_std:
-        from ..ops.pallas_gram import fused_gp_predict_mean
-
-        fam, amp, ls = params
-        return fused_gp_predict_mean(
-            x, gp.X, gp.alpha, ls, amp, interpret=False, family=fam
-        ).astype(gp.alpha.dtype)
-    if (
-        params is not None
-        and return_std
-        and gp.K_inv is not None
-        and gp.X.shape[0] <= 4096
-    ):
-        from ..ops.pallas_gram import fused_gp_predict_mean_var
-
-        # VMEM model: Mosaic double-buffers the grid-indexed K⁻¹ block, so
-        # the working set is (2·tile_k + tile_q)·N_p floats — the default
-        # (512, 256) tiles OOM at N=4096 (20 MB > 16, caught by the
-        # boundary golden in tests/test_tpu_goldens.py); shrink tile_k
-        # past N=2560 instead of falling back to the XLA path.
-        tile_k = 512 if gp.X.shape[0] <= 2560 else 256
-        fam, amp, ls = params
-        prior = amp + white_noise_level(gp.kernel)
-        mean, var = fused_gp_predict_mean_var(
-            x, gp.X, gp.alpha, gp.K_inv, ls, amp, prior,
-            interpret=False, family=fam, tile_k=tile_k,
-        )
-        mean = mean.astype(gp.alpha.dtype)
-        std = jnp.sqrt(var).astype(gp.alpha.dtype)
-        if epistemic_only:
-            std = std - jnp.sqrt(white_noise_level(gp.kernel))
-        return mean, jnp.broadcast_to(std[:, None], mean.shape)
-
     k_star = gp.kernel(x, gp.X)  # cross-cov: White contributes zeros
     mean = jnp.dot(k_star, gp.alpha, precision=_HI)
     if not return_std:
@@ -665,21 +583,19 @@ def fit_blocked(
     maxiter: int = 40,
     jitter: float = 1e-10,
     block: int = 512,
-    precision=None,
-    interpret: Optional[bool] = None,
+    precision=_HI,
     refine_iters: int = 1,
 ) -> ExactGP:
     """Large-N hyperparameter fit through the blocked panel Cholesky.
 
     The whole optimization is one compiled ``lax.scan`` of optax L-BFGS
     steps whose value-and-grad is the closed-form panel LML of
-    ``ops/blocked_lml.py`` — per iteration ≈ 3·(N³/3) MXU FLOPs
+    ``ops/blocked_lml.py`` — per iteration ≈ 3·(N³/3) GEMM FLOPs
     *independent of the number of hyperparameters*, with no AD through the
     factorization and no dense (N, N) buffer.  This removes the practical
     reason for the reference's 20 000-point active-learning cap
     (``models/gaussian_process_al.py:16``): sklearn's fit there is minutes
-    per restart on CPU at N=10k; this path is tens of ms per L-BFGS step
-    on one TPU chip.
+    per restart on CPU at N=10k.
 
     Requires the C·stationary(+White) family (:func:`stationary_family_params`);
     the returned GP's kernel is the canonical
@@ -707,13 +623,6 @@ def fit_blocked(
     Y2 = jnp.asarray(Y2, jnp.float32)
     D = X.shape[1]
 
-    if precision is None:
-        precision = (
-            jax.lax.Precision.HIGH
-            if jax.default_backend() == "tpu"
-            else jax.lax.Precision.HIGHEST
-        )
-
     noise0 = white_noise_level(kernel)
     theta0 = {
         "log_amp": jnp.log(jnp.asarray(amp0, jnp.float32)),
@@ -740,7 +649,6 @@ def fit_blocked(
         jitter=_eff_jitter(jnp.float32, jitter),
         block=block,
         precision=precision,
-        interpret=interpret,
         refine_iters=refine_iters,
     )
 
@@ -787,9 +695,7 @@ def fit_blocked(
         jnp.exp(theta["log_noise"]),
         bounds=white_node.bounds if white_node is not None else DEFAULT_BOUNDS,
     )
-    return condition_blocked(
-        fitted, X, Y2, jitter=jitter, block=block, interpret=interpret
-    )
+    return condition_blocked(fitted, X, Y2, jitter=jitter, block=block)
 
 
 def _lbfgs_elast(value_and_grad_b, x0, lower, upper, maxiter, m=8,
@@ -801,8 +707,8 @@ def _lbfgs_elast(value_and_grad_b, x0, lower, upper, maxiter, m=8,
     (m, T, L) rolled buffers with rho=0 masking empty/degenerate slots,
     and the Armijo backtracking line search halves each lane's step
     individually.  One batched value+grad call per candidate — built for
-    the fused multi-data LML kernel where a (T, L) evaluation costs ~100µs
-    regardless of L (``ops.fused_lml.small_lml_value_grad_md``).
+    the multi-data LML (``ops.fused_lml.small_lml_value_grad_md``), one
+    batched computation for all L lanes.
     ``optax.lbfgs`` cannot be used here: its inner products span the whole
     parameter pytree, coupling the lanes.
     """
@@ -877,21 +783,18 @@ def fit_ensemble_fused(
     key: Optional[Array] = None,
     jitter: float = 1e-10,
     maxiter: int = 40,
-    use_kernel: Optional[bool] = None,
 ) -> Tuple[Array, Array]:
     """Batched multi-restart hyperparameter fits: member e fits ITS OWN
     dataset (Xe[e], Ye[e]); all members × restarts optimize as ONE
-    compiled program whose value+grad is a single fused Pallas kernel
-    call per line-search candidate (``ops.fused_lml``).
+    compiled program whose value+grad is one batched small-LML call per
+    line-search candidate (``ops.fused_lml``).
 
     The reference performs this workload as one sklearn L-BFGS fit per
     ensemble member (``models/gaussian_process.py:17-29`` under
-    ``transportation/``-level loops); the r3 vmapped-AD equivalent ran at
-    ~1.1k fits/s on v5e-1 — the per-iteration cost there is hundreds of
-    tiny XLA fusions (the round-4 HMC cost model, same disease).
+    ``transportation/``-level loops).
 
-    Restart lanes are nearly free (the kernel's cost is per 128-lane
-    block), so the default is higher than ``fit_jit``'s — the small-N LML
+    Restart lanes are cheap (one more lane of the same batch), so the
+    default is higher than ``fit_jit``'s — the small-N LML
     surface is multimodal (noise-dominated vs signal basins) and lanes
     are the cheap way to cover it (measured: member basins missed at 2
     restarts, all recovered at 6).
@@ -904,10 +807,7 @@ def fit_ensemble_fused(
         raise ValueError("fit_ensemble_fused needs the C·stationary(+White) family")
     family, n_ls, has_noise, perm = layout
     inv_perm = np.argsort(perm)
-    from ..ops.fused_lml import (
-        small_lml_value_grad_md,
-        small_lml_value_grad_md_ref,
-    )
+    from ..ops.fused_lml import small_lml_value_grad_md
 
     E, n, D = Xe.shape
     Ye3 = Ye if Ye.ndim == 3 else Ye[:, :, None]
@@ -929,12 +829,8 @@ def fit_ensemble_fused(
 
     Xe_t = jnp.repeat(jnp.asarray(Xe), R, axis=0)
     Ye_t = jnp.repeat(jnp.asarray(Ye3), R, axis=0)
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    fn = small_lml_value_grad_md if use_kernel else small_lml_value_grad_md_ref
-
     def nll_b(th):
-        val, grad = fn(
+        val, grad = small_lml_value_grad_md(
             Xe_t, Ye_t, th, family=family, n_ls=n_ls, has_noise=has_noise,
             jitter=jitter,
         )

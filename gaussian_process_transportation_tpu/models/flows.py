@@ -6,7 +6,7 @@ blocks, identity init; trained with SmoothL1 on source→target — i.e. the
 flow fits Φ itself, not the residual) and the vmapped ensemble variant
 (``models/torch/ensemble_bijective_network.py``).
 
-TPU notes: the exact flow Jacobian is one ``jacfwd`` through the whole
+Design notes: the exact flow Jacobian is one ``jacfwd`` through the whole
 network (the chain-rule product the reference accumulates layer-by-layer
 with autograd); ensembles batch over a leading member axis via ``vmap``
 — E flows train as one program.  Coupling layers invert analytically,
@@ -25,7 +25,7 @@ import optax
 Array = jax.Array
 
 
-from flax import struct
+from ..utils import pytree as struct
 
 
 @struct.dataclass

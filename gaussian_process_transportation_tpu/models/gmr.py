@@ -4,7 +4,7 @@ Parity with the reference's GMM transport demo
 (``example/comparisons/surfaces/surface_generalization_with_gmm.py:62-67``),
 which fits ``gmr.sklearn.GaussianMixtureRegressor(n_components=10)`` on the
 affine-aligned source → target pairs and maps the trajectory through the
-conditional mean.  Here both halves are TPU-native:
+conditional mean.  Here both halves are jitted JAX:
 
 * the joint GMM over Z = [X, Y] is fit by a fully jitted EM
   (``lax.scan`` over iterations, batched Cholesky E-step, one fused

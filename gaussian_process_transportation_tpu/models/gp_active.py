@@ -6,7 +6,7 @@ random 10% subset and then greedily adds the max-posterior-std point,
 REFITTING the whole sklearn GP (including hyperopt) each iteration —
 O(iters · N³) with Python in the loop.
 
-TPU re-design: greedy max-variance selection with fixed hyperparameters is
+Re-design: greedy max-variance selection with fixed hyperparameters is
 exactly *partial pivoted Cholesky* on the kernel matrix — each step picks
 the point with the largest Schur-complement diagonal (= posterior variance
 given the already-selected points) and updates the diagonal with one kernel
@@ -64,7 +64,7 @@ def greedy_variance_select(
         proj = L_rows[:, pick] @ L_rows  # (N,)
         pivot = jnp.sqrt(jnp.maximum(d[pick], 1e-12))
         # kernel params may be f64 under x64 while X (and L_rows) are f32 —
-        # scatter of a wider dtype is a FutureError in jax (VERDICT r4 #6w)
+        # scatter of a wider dtype is a FutureError in jax
         l_j = ((k_col - proj) / pivot).astype(L_rows.dtype)
         L_rows = L_rows.at[j].set(l_j)
         d = jnp.maximum(d - l_j**2, 0.0)
@@ -87,7 +87,7 @@ class GaussianProcessActiveLearning:
         n_restarts_optimizer: int = 5,
         n_samples_max: int = 20000,
         seed: int = 0,
-        use_blocked: Optional[bool] = None,
+        use_blocked: bool = False,
         blocked_kwargs: Optional[dict] = None,
     ):
         self.kernel = kernel
@@ -96,13 +96,11 @@ class GaussianProcessActiveLearning:
         self.n_samples_max = n_samples_max
         self.seed = seed
         # use_blocked: route the (subset) hyperopt through the panel-LML
-        # fit (models.exact_gp.fit_blocked — ~32 ms per L-BFGS step at
-        # N=10240 on one v5e chip) instead of the dense scipy fit.  None =
-        # auto: on TPU, for the C·stationary(+White) family, at
-        # N ≥ _BLOCKED_CHOL_MIN_N.  The reference's n_samples_max=20000
+        # fit (models.exact_gp.fit_blocked, C·stationary(+White) family)
+        # instead of the dense scipy fit (dense is faster on the H100,
+        # PERF.md).  The reference's n_samples_max=20000
         # exists because sklearn's dense fit is impractical above it
-        # (gaussian_process_al.py:16); with the blocked fit the cap can be
-        # raised to one chip's HBM (~50k in f32 panels).
+        # (gaussian_process_al.py:16).
         self.use_blocked = use_blocked
         self.blocked_kwargs = dict(blocked_kwargs or {})
         self.state: Optional[core.ExactGP] = None
@@ -120,14 +118,7 @@ class GaussianProcessActiveLearning:
                 noise=float(core.white_noise_level(self.kernel)),
             )
             X, Y = X[idx], Y[idx]
-        use_blocked = self.use_blocked
-        if use_blocked is None:
-            use_blocked = (
-                core.stationary_family_params(self.kernel) is not None
-                and X.shape[0] >= core._BLOCKED_CHOL_MIN_N
-                and jax.default_backend() == "tpu"
-            )
-        if use_blocked:
+        if self.use_blocked:
             self.state = core.fit_blocked(
                 self.kernel,
                 X.astype(jnp.float32),

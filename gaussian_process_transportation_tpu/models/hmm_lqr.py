@@ -1,6 +1,6 @@
 """HMM over task-parameterized (x, ẋ) features + LQR reproduction.
 
-TPU-native equivalent of the reference's pbdlib baseline
+JAX equivalent of the reference's pbdlib baseline
 (``models/model_hmm.py:1-40``: ``pbdlib.hmm.HMM(nb_states=5, nb_dim=8)``
 on per-frame position+velocity views, reproduced with ``pbdlib.poglqr.PoGLQR``):
 

@@ -12,7 +12,7 @@ in least squares, preserving local differential coordinates while moving the
 matched waypoints by (target − source).  Deterministic; ``predict`` returns
 the precomputed edited trajectory with ε std.
 
-TPU notes: the Laplacian is built directly as a banded matrix (no networkx)
+Design notes: the Laplacian is built directly as a banded matrix (no networkx)
 and the solve is one ``jnp.linalg.lstsq`` — a single XLA QR on device.
 """
 from __future__ import annotations

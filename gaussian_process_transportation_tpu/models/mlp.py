@@ -2,11 +2,11 @@
 
 Replaces the reference's sklearn/torch MLPs
 (``models/ensemble_nerual_network.py:4-30``, ``models/torch/neural_network.py:10-88``,
-``models/torch/ensemble_neural_network.py:5-45``).  The key TPU re-design:
+``models/torch/ensemble_neural_network.py:5-45``).  The key re-design:
 an ensemble is NOT a Python list of models trained sequentially — member
 parameters carry a leading ensemble axis and every member trains
 simultaneously inside one ``lax.scan`` jit (`vmap` over the member axis),
-so E members cost one batched matmul pipeline on the MXU.
+so E members cost one batched matmul pipeline.
 
 Derivatives (∂output/∂input Jacobians, used for velocity transport) are
 exact forward-mode autodiff, batched over queries and members.

@@ -1,4 +1,4 @@
-"""Sparse variational Gaussian processes (SVGP), TPU-native.
+"""Sparse variational Gaussian processes (SVGP) in JAX.
 
 Re-designs the reference's gpytorch stack
 (``models/torch/stocastic_variational_gaussian_process.py:15-115`` and the
@@ -34,7 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
-from flax import struct
+from ..utils import pytree as struct
 
 _HI = jax.lax.Precision.HIGHEST
 

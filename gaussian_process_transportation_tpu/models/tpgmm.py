@@ -3,7 +3,7 @@
 The reference's multi-reference-frame benchmark compares GPT against a
 TP-GMM baseline backed by the external ``tp_gmm`` package
 (``models/model_tp_gmm.py:3-5``) and an HMM baseline backed by ``pbdlib``
-(``model_hmm.py:3-4``).  This module provides the TPU-native equivalent:
+(``model_hmm.py:3-4``).  This module provides the JAX equivalent:
 
 * Calinon-style TP-GMM: each mixture state k keeps a per-frame Gaussian
   (μ_k^{(j)}, Σ_k^{(j)}) over features [t, x^{(j)}] where x^{(j)} is the

@@ -11,7 +11,7 @@ fit for XLA.  Current kernels:
 
 The shared library is built lazily with ``g++`` on first use and cached
 next to the source; every caller must keep a numpy fallback (``available()``
-is False when no toolchain exists or ``GPT_TPU_DISABLE_NATIVE=1``).
+is False when no toolchain exists or ``GPT_DISABLE_NATIVE=1``).
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ def _load():
         if _tried:
             return _lib
         lib = None
-        if os.environ.get("GPT_TPU_DISABLE_NATIVE", "0") != "1":
+        if os.environ.get("GPT_DISABLE_NATIVE", "0") != "1":
             try:
                 lib = ctypes.CDLL(_build())
                 lib.gpt_best_split.restype = ctypes.c_int

@@ -6,7 +6,7 @@ from .linalg import (
     log_det_from_chol,
 )
 
-# Pallas-panel blocked Cholesky — the production large-N path.
+# Blocked panel Cholesky — the large-N path.
 from .blocked_chol import (
     BlockedCholesky,
     blocked_cholesky,
@@ -27,8 +27,8 @@ from .blocked_lml import (
     tri_inverse_panels,
 )
 
-# Experimental XLA-level mixed-precision variants (lose to the Pallas path
-# on TPU — kept for the PCG refinement and as a measured record).
+# Experimental mixed-precision variants (no production caller; kept for the
+# PCG refinement).
 from .mixed_linalg import (
     blocked_cholesky as blocked_cholesky_mixed,
     ir_solve,

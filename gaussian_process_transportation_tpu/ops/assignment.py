@@ -51,7 +51,7 @@ def auction_assignment(cost: Array, eps_start: float = 1.0, max_iter: int = 1000
 
     Persons are the *columns* (assumed the smaller side, e.g. distribution
     points); objects the rows.  Returns ``row_for_col``: for each column j,
-    the assigned row index.  Jittable; O(iters · N·M) on the VPU.
+    the assigned row index.  Jittable; O(iters · N·M) elementwise work.
     """
     C = jnp.asarray(cost)
     n_rows, n_real = C.shape

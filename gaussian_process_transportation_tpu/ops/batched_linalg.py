@@ -1,255 +1,79 @@
-"""Ensemble-last (E-last) linear algebra for huge batches of tiny matrices.
+"""Linear algebra for huge batches of tiny SPD matrices.
 
-TPU tiles pad the two minormost axes of every buffer to (8, 128).  A vmapped
-``jnp.linalg.cholesky`` over (E, n, n) with n≈20 therefore moves ~8× the
-useful bytes and runs a sequential custom call; with the ensemble axis E
-minormost instead, every step of an *unrolled* factorization is a plain
-elementwise op over perfectly-packed (…, E) vectors on the VPU.
+Two forms, for two needs:
 
-Used by the batched transport engine (``transport/gpt.py``) for the
-fit stage of E≈10⁴-member ensembles of N≈20-point GPs, where this layout
-is ~20× cheaper than the vmapped custom-call path (measured on v5e).
-
-Only sensible for small static n (ops are unrolled in Python: O(n²) fused
-ops, O(n³/6·E) scalar work) — callers should fall back to
-``jnp.linalg.cholesky`` for n ≳ 64.
+* :func:`spd_inverse` — the transport fit stage (``transport/gpt.py``)
+  inverts E≈10⁴ Gram matrices of n≈20 points at once.  One batched
+  Cholesky, one batched triangular solve and one batched product do it;
+  XLA hands the first two to cuSOLVER/cuBLAS batched routines on a GPU
+  (measured against an unrolled chain in ``PERF.md``).
+* The ensemble-last (E-last) chain — :func:`cholesky_elast`,
+  :func:`inv_lower_elast`, :func:`sum_lanes` — for the small-n LML of
+  ``ops/fused_lml.py``.  Every lane runs the same elementwise program with
+  a fixed order of adds, so a lane's result does not depend on how many
+  lanes share the call.  Batched library routines give no such promise
+  (on an H100 a lane's bits changed between 16- and 64-lane calls,
+  ``PERF.md``), and sharded vs unsharded hyperposterior chains must agree
+  bit for bit (``parallel/samplers.py``).  Unrolled over the static n, so
+  only for small n.
 """
 from __future__ import annotations
 
-import functools
-from typing import Optional, Tuple
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 Array = jax.Array
 
 
-def cholesky_elast(K: Array) -> Array:
-    """Lower Cholesky of K (n, n, E) — one (n,n) SPD matrix per lane slot.
+def spd_inverse(K: Array) -> tuple[Array, Array]:
+    """(L, K⁻¹) of a batch of SPD matrices K (E, n, n), K⁻¹ = L⁻ᵀ L⁻¹."""
+    L = jnp.linalg.cholesky(K)
+    eye = jnp.broadcast_to(jnp.eye(K.shape[-1], dtype=K.dtype), K.shape)
+    Li = jax.scipy.linalg.solve_triangular(L, eye, lower=True)
+    K_inv = jnp.einsum(
+        "eki,ekj->eij", Li, Li, precision=jax.lax.Precision.HIGHEST
+    )
+    return L, K_inv
 
-    Left-looking column algorithm, unrolled over the static n."""
+
+def sum_lanes(x: Array) -> Array:
+    """Sum of x (m, ..., E) over its leading axis by pairwise halving: a
+    fixed order of elementwise adds, the same whatever E is."""
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = jnp.concatenate([x, jnp.zeros_like(x[:1])], axis=0)
+        h = x.shape[0] // 2
+        x = x[:h] + x[h:]
+    return x[0]
+
+
+def cholesky_elast(K: Array) -> Array:
+    """Lower Cholesky of K (n, n, E) — one (n,n) SPD matrix per lane.
+
+    Left-looking column algorithm unrolled over the static n; column j
+    subtracts its update Σ_{k<j} L[:, k]·L[j, k] as one product summed by
+    :func:`sum_lanes`."""
     n = K.shape[0]
+    rows = jnp.arange(n)[:, None]
     cols = []  # cols[j]: (n, E) = column j of L (zeros above the diagonal)
     for j in range(n):
-        v = K[:, j]  # (n, E)
-        for k in range(j):
-            v = v - cols[k][j][None, :] * cols[k]
-        inv_sqrt = jax.lax.rsqrt(v[j])
-        col = v * inv_sqrt[None, :]
-        if j > 0:
-            col = jnp.concatenate([jnp.zeros_like(col[:j]), col[j:]], axis=0)
-        cols.append(col)
+        v = K[:, j]
+        if j:
+            C = jnp.stack(cols, axis=0)                       # (j, n, E)
+            v = v - sum_lanes(C * C[:, j][:, None, :])
+        cols.append(jnp.where(rows >= j, v * jax.lax.rsqrt(v[j]), 0.0))
     return jnp.stack(cols, axis=1)  # (n, n, E)
 
 
 def inv_lower_elast(L: Array) -> Array:
-    """Inverse of a lower-triangular L (n, n, E) by unrolled forward
-    substitution (columns of L⁻¹ solve L x = e_j)."""
+    """Inverse of a lower-triangular L (n, n, E), row by row:
+    L⁻¹[i] = (e_i − Σ_{k<i} L[i, k]·L⁻¹[k]) / L[i, i]."""
     n = L.shape[0]
-    inv_diag = 1.0 / jnp.einsum("iie->ie", L)  # (n, E)
-    zero = jnp.zeros_like(L[0, 0])  # (E,)
-    cols = []
-    for j in range(n):
-        rows = [zero] * j  # rows above j are zero
-        rows.append(inv_diag[j])
-        for i in range(j + 1, n):
-            s = zero
-            for k in range(j, i):
-                s = s + L[i, k] * rows[k]
-            rows.append(-s * inv_diag[i])
-        cols.append(jnp.stack(rows, axis=0))  # (n, E)
-    return jnp.stack(cols, axis=1)  # (n, n, E)
-
-
-def spd_inverse_elast(K: Array) -> tuple[Array, Array]:
-    """(L, K⁻¹) of SPD K (n, n, E): K⁻¹ = L⁻ᵀ L⁻¹, all E-last."""
-    L = cholesky_elast(K)
-    Li = inv_lower_elast(L)
-    K_inv = jnp.einsum("kie,kje->ije", Li, Li)
-    return L, K_inv
-
-
-# ---------------------------------------------------------------------------
-# Fused Pallas kernel: the whole chol+inverse chain in ONE kernel
-# ---------------------------------------------------------------------------
-
-
-def _spd_inv_kernel(k_ref, l_ref, kinv_ref, *, n):
-    """Whole chol+inverse chain for lane-batched tiny SPD matrices in ONE
-    kernel.
-
-    Layout (the ops/fused_lml.py discipline — Mosaic-safe 2D tiles only):
-    the block is (n·n, TE) with per-lane column j of the matrix at rows
-    j·n…(j+1)·n; every step is a static 2D slice / FMA / masked reduce on
-    (n, TE) or (1, TE) tiles, unrolled over the static n.  The equivalent
-    XLA chain (cholesky_elast + inv_lower_elast + einsum) is ~n² separate
-    HBM-round-trip fusions whose dispatch gaps dominated the transport fit
-    stage (measured 13 ms of the 36 ms E=16384 batch, VERDICT r4 #7).
-
-    Algorithm: left-looking Cholesky columns, then K⁻¹ rows by forward +
-    backward substitution against the identity (K⁻¹ is symmetric, so rows
-    double as columns on the way out).
-    """
-    TE = k_ref.shape[1]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)  # (n, 1) row index
-
-    kcols = [k_ref[j * n:(j + 1) * n, :] for j in range(n)]
-
-    # Cholesky, E-last unrolled (identical math to cholesky_elast)
-    cols = []        # cols[j]: (n, TE) column j of L (zeros above diag)
-    inv_diag = []    # (1, TE)
-    for j in range(n):
-        v = kcols[j]
-        for k in range(j):
-            v = v - cols[k][j:j + 1, :] * cols[k]
-        r = jax.lax.rsqrt(v[j:j + 1, :])
-        cols.append(jnp.where(sub >= j, v * r, 0.0))
-        inv_diag.append(r)
-        l_ref[j * n:(j + 1) * n, :] = cols[j]
-
-    # K⁻¹ rows: L Lᵀ V = I — forward then backward substitution
-    U = []
+    eye = jnp.eye(n, dtype=L.dtype)[:, :, None]
+    out = []
     for i in range(n):
-        s = jnp.where(sub == i, 1.0, 0.0) * jnp.ones((1, TE), jnp.float32)
-        for k in range(i):
-            s = s - cols[k][i:i + 1, :] * U[k]
-        U.append(s * inv_diag[i])
-    V = [None] * n
-    for i in reversed(range(n)):
-        s = U[i]
-        for k in range(i + 1, n):
-            s = s - cols[i][k:k + 1, :] * V[k]
-        V[i] = s * inv_diag[i]
-        kinv_ref[i * n:(i + 1) * n, :] = V[i]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "lanes"))
-def spd_inverse_elast_fused(
-    K: Array, interpret: Optional[bool] = None, lanes: int = 512
-) -> Tuple[Array, Array]:
-    """(L, K⁻¹) of SPD K (n, n, E) in ONE Pallas kernel (grid over E lane
-    tiles).  Same math as :func:`spd_inverse_elast` (equality pinned in
-    tests/test_batched_linalg_fused.py); E pads to a multiple of ``lanes``
-    with identity matrices (sliced away on return)."""
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
-    n, n2, E = K.shape
-    assert n == n2, K.shape
-    K = K.astype(jnp.float32)
-    Ep = -(-E // lanes) * lanes
-    if Ep != E:
-        pad = jnp.broadcast_to(
-            jnp.eye(n, dtype=jnp.float32)[:, :, None], (n, n, Ep - E)
-        )
-        K = jnp.concatenate([K, pad], axis=-1)
-    K2 = K.reshape(n * n, Ep)  # row i·n+r = matrix entry (r, i), lane-last
-    grid = (Ep // lanes,)
-    spec = pl.BlockSpec((n * n, lanes), lambda e: (0, e))
-    out_shape = (
-        jax.ShapeDtypeStruct((n * n, Ep), jnp.float32),
-        jax.ShapeDtypeStruct((n * n, Ep), jnp.float32),
-    )
-    L2, Kinv2 = pl.pallas_call(
-        functools.partial(_spd_inv_kernel, n=n),
-        grid=grid,
-        out_shape=out_shape,
-        in_specs=[spec],
-        out_specs=(spec, spec),
-        interpret=bool(interpret),
-    )(K2)
-    # kernel rows j·n…(j+1)·n hold COLUMN j, so the plain reshape is the
-    # transpose; K⁻¹ is symmetric, L needs the axis swap
-    L = jnp.swapaxes(L2.reshape(n, n, Ep), 0, 1)
-    Kinv = Kinv2.reshape(n, n, Ep)
-    if Ep != E:
-        L, Kinv = L[:, :, :E], Kinv[:, :, :E]
-    return L, Kinv
-
-
-# Fused-kernel admission and VMEM-fitting lane width (hardware-validated
-# boundaries: n=20/lanes=1024 and n=32/lanes=512 OOM the 16 MB scoped
-# VMEM — the kernel holds ~4 n²-sized tile lists — while n=24/512 and
-# n=32/256 compile and match the unrolled path).
-_FUSED_MAX_N = 32
-
-
-def spd_inverse_elast_auto(K: Array) -> Tuple[Array, Array]:
-    """(L, K⁻¹) of SPD K (n, n, E): the fused Pallas kernel on TPU for
-    small n (6× the unrolled XLA chain at n=20, E=16384 — 2.7 vs 16.3 ms
-    on v5e-1), the unrolled E-last path elsewhere."""
-    n = K.shape[0]
-    if n <= _FUSED_MAX_N and jax.default_backend() == "tpu":
-        return spd_inverse_elast_fused(
-            K, interpret=False, lanes=512 if n <= 24 else 256
-        )
-    return spd_inverse_elast(K)
-
-
-def cho_solve_elast(L: Array, B: Array) -> Array:
-    """Solve (L Lᵀ) X = B with L (n, n, E), B (n, p, E) — unrolled forward
-    then backward substitution, all elementwise over E."""
-    n = L.shape[0]
-    inv_diag = 1.0 / jnp.einsum("iie->ie", L)  # (n, E)
-    # forward: L z = B
-    z = []
-    for i in range(n):
-        s = B[i]  # (p, E)
-        for k in range(i):
-            s = s - L[i, k][None, :] * z[k]
-        z.append(s * inv_diag[i][None, :])
-    # backward: Lᵀ x = z
-    x = [None] * n
-    for i in reversed(range(n)):
-        s = z[i]
-        for k in range(i + 1, n):
-            s = s - L[k, i][None, :] * x[k]
-        x[i] = s * inv_diag[i][None, :]
-    return jnp.stack(x, axis=0)  # (n, p, E)
-
-
-# ---------------------------------------------------------------------------
-# custom_vmap wrappers: unbatched calls use the LAPACK-style custom calls;
-# any vmapped call re-lays the batch ensemble-last and runs the unrolled
-# kernels above.  NOTE: these do not support differentiation *through* the
-# op — wrap consumers in jax.custom_vjp with analytic gradients (see
-# models/exact_gp.py log-marginal-likelihood).
-# ---------------------------------------------------------------------------
-
-from jax.custom_batching import custom_vmap
-
-
-@custom_vmap
-def small_cholesky(K: Array) -> Array:
-    """Lower Cholesky of one small (n ≲ 64) SPD matrix; under vmap, huge
-    batches run ensemble-last on the VPU with zero tile padding."""
-    return jnp.linalg.cholesky(K)
-
-
-@small_cholesky.def_vmap
-def _small_cholesky_vmap(axis_size, in_batched, K):
-    (kb,) = in_batched
-    if not kb:
-        K = jnp.broadcast_to(K[None], (axis_size,) + K.shape)
-    L = cholesky_elast(jnp.moveaxis(K, 0, -1))
-    return jnp.moveaxis(L, -1, 0), True
-
-
-@custom_vmap
-def small_cho_solve(L: Array, B: Array) -> Array:
-    """(L Lᵀ)⁻¹ B for one small factorization; batch goes ensemble-last."""
-    y = jax.scipy.linalg.solve_triangular(L, B, lower=True)
-    return jax.scipy.linalg.solve_triangular(L.T, y, lower=False)
-
-
-@small_cho_solve.def_vmap
-def _small_cho_solve_vmap(axis_size, in_batched, L, B):
-    lb, bb = in_batched
-    if not lb:
-        L = jnp.broadcast_to(L[None], (axis_size,) + L.shape)
-    if not bb:
-        B = jnp.broadcast_to(B[None], (axis_size,) + B.shape)
-    X = cho_solve_elast(jnp.moveaxis(L, 0, -1), jnp.moveaxis(B, 0, -1))
-    return jnp.moveaxis(X, -1, 0), True
+        r = jnp.broadcast_to(eye[i], L.shape[1:])             # (n, E)
+        if i:
+            r = r - sum_lanes(L[i, :i][:, None, :] * jnp.stack(out, axis=0))
+        out.append(r / L[i, i])
+    return jnp.stack(out, axis=0)  # (n, n, E)

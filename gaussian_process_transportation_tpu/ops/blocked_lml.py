@@ -1,6 +1,6 @@
 """Exact large-N log-marginal likelihood with closed-form gradients through
 the blocked panel Cholesky — GP hyperparameter optimization at the
-reference's active-learning scale (N up to 20 000+) on TPU.
+reference's active-learning scale (N up to 20 000+).
 
 Why this exists: the reference fits GP hyperparameters with sklearn's
 L-BFGS (``policy_transportation/models/gaussian_process.py:17-29``), whose
@@ -13,7 +13,7 @@ still materializes the dense (N, N) factor and K⁻¹.
 
 Here the whole gradient pipeline stays in the lower-triangle *column-panel*
 representation of ``ops/blocked_chol.py`` (the full (N, N) never exists in
-HBM) and is custom-call-free:
+device memory) and is GEMM-shaped:
 
 * :func:`tri_inverse_panels` — L⁻¹ in panel form: per column-panel, a
   shrinking blocked forward substitution seeded with the retained
@@ -22,7 +22,7 @@ HBM) and is custom-call-free:
   block pair (N³/3 FLOPs).
 * :func:`blocked_lml_value_and_grad` — the textbook trace identity
   ``∂LML/∂θ = ½⟨ααᵀ − P·K⁻¹, ∂K/∂θ⟩`` evaluated panel-by-panel: ∂K/∂θ is
-  rebuilt elementwise per panel (one fused VPU pass per hyperparameter),
+  rebuilt elementwise per panel (one fused pass per hyperparameter),
   so the gradient cost is 2·N³/3 GEMM FLOPs **independent of the number
   of hyperparameters** — vs sklearn's O(N³) *per* hyperparameter
   (sklearn ``gaussian_process/_gpr.py`` computes
@@ -48,10 +48,8 @@ import jax
 import jax.numpy as jnp
 
 from .blocked_chol import (
-    _GROUPED_MIN_PANELS,
     BlockedCholesky,
     cholesky_panels,
-    cholesky_panels_grouped,
     stationary_from_sqdist,
     stationary_gram_panels,
     symmetric_matvec_panels,
@@ -113,9 +111,7 @@ def tri_inverse_panels(
 ) -> list:
     """L⁻¹ as lower-triangle column panels (same layout as ``chol.panels``).
 
-    Row-block recurrence with O(P) GEMMs (VERDICT r4 #3 — the per-column
-    forward substitution put ~P² GEMM HLOs in the program and minutes of
-    compile at large N): block row i of T = L⁻¹ is
+    Row-block recurrence with O(P) GEMMs: block row i of T = L⁻¹ is
     ``T[i, :iB] = −L_ii⁻¹ · (L[i, :iB] @ T[:iB, :iB])`` — ONE history GEMM
     against the dense T accumulated so far, chunked ``chunks``-ways over
     the output columns so each chunk's GEMM starts at the first nonzero
@@ -160,7 +156,7 @@ def kinv_panels(
     panel s rows [r0, Np) are ``T[r0:, r0:r1]ᵀ @ T[r0:, s-panel]`` (rows of
     T above r0 are exactly zero in those columns), so the HLO count is
     P·chunks instead of the block-pair form's P²/2, at ~(C+1)/C of its
-    N³/6 FLOPs (VERDICT r4 #3).
+    N³/6 FLOPs.
     """
     if tinv is None:
         tinv = tri_inverse_panels(chol, precision, chunks=chunks)
@@ -213,7 +209,6 @@ def _lml_forward(
     jitter: float,
     block: int,
     precision,
-    interpret,
     refine_iters: int,
 ):
     """Shared forward: panels → factor → α (+refinement) → LML value."""
@@ -222,10 +217,7 @@ def _lml_forward(
     panels, _ = stationary_gram_panels(
         X, ls, amp, noise + jitter, block, precision, family
     )
-    if len(panels) >= _GROUPED_MIN_PANELS:
-        chol = cholesky_panels_grouped(panels, n, precision, interpret)
-    else:
-        chol = cholesky_panels(panels, n, precision, interpret)
+    chol = cholesky_panels(panels, n, precision)
     Yf = Y2.astype(jnp.float32)
     alpha = chol.solve(Yf, precision)
     for _ in range(refine_iters):
@@ -252,7 +244,7 @@ def _lml_gradient(
     W = ½(ααᵀ − P·K⁻¹) is formed panel-by-panel (never dense), weighted 2×
     on strictly-sub-diagonal blocks (each stored once, counted twice by
     symmetry) and masked off the padding rows; ∂K/∂θ is rebuilt elementwise
-    per panel from X — one fused VPU pass per θ component.
+    per panel from X — one fused elementwise pass per θ component.
     """
     n, D = X.shape
     B = chol.block
@@ -276,8 +268,7 @@ def _lml_gradient(
         # symmetry weights: diag block counted once, sub-diagonal rows twice
         w = jnp.where(rows_g < (k + 1) * B, 1.0, 2.0)
         w = jnp.where((rows_g < n) & (cols_g < n), w, 0.0)
-        # ααᵀ block — p_out ≤ 8 unrolled on the VPU (a K=p_out GEMM would
-        # pad the MXU contraction to 128, same lesson as _sqdist)
+        # ααᵀ block — p_out ≤ 8 outer products unrolled elementwise
         a_rows = a_p[k * B :]
         a_cols = a_p[k * B : (k + 1) * B]
         Gk = jnp.zeros((H, B), jnp.float32)
@@ -311,21 +302,19 @@ def blocked_lml_value_and_grad(
     jitter: float = 1e-6,
     block: int = 512,
     precision=_HIGHEST,
-    interpret: Optional[bool] = None,
     refine_iters: int = 1,
 ):
     """(LML, (∂/∂log amp, ∂/∂log ℓ, ∂/∂log σ²)) — everything blocked.
 
-    Total cost ≈ 3·N³/3 MXU FLOPs (factor + L⁻¹ + K⁻¹) regardless of the
-    number of hyperparameters, plus O(N²·D) VPU elementwise work.
+    Total cost ≈ 3·N³/3 GEMM FLOPs (factor + L⁻¹ + K⁻¹) regardless of the
+    number of hyperparameters, plus O(N²·D) elementwise work.
     """
     Y2 = Y if Y.ndim == 2 else Y[:, None]
     amp = jnp.exp(log_amp).astype(jnp.float32)
     ls = jnp.exp(jnp.atleast_1d(log_ls)).astype(jnp.float32)
     noise = jnp.exp(log_noise).astype(jnp.float32)
     val, chol, alpha = _lml_forward(
-        X, Y2, family, amp, ls, noise, jitter, block, precision, interpret,
-        refine_iters,
+        X, Y2, family, amp, ls, noise, jitter, block, precision, refine_iters,
     )
     grads = _lml_gradient(
         X, family, amp, ls, noise, chol, alpha, Y2.shape[1], precision
@@ -338,7 +327,6 @@ def make_blocked_lml(
     jitter: float = 1e-6,
     block: int = 512,
     precision=_HIGHEST,
-    interpret: Optional[bool] = None,
     refine_iters: int = 1,
 ):
     """Build ``lml(theta, X, Y) -> scalar`` with a closed-form custom VJP.
@@ -356,7 +344,7 @@ def make_blocked_lml(
         noise = jnp.exp(theta["log_noise"]).astype(jnp.float32)
         val, chol, alpha = _lml_forward(
             X, Y2, family, amp, ls, noise, jitter, block, precision,
-            interpret, refine_iters,
+            refine_iters,
         )
         return val, (theta, X, Y, chol, alpha)
 

@@ -1,57 +1,41 @@
-"""Fused small-N GP log-marginal-likelihood value+gradient — one Pallas
-kernel per chain-ensemble block, ensemble-last.
+"""Small-n GP log-marginal-likelihood value and gradient for many
+parameter vectors at once, in plain XLA.
 
-Why this exists (the round-3 HMC cost model): the hyperposterior HMC
-workload is ~1,500 *sequential* leapfrog steps, each needing value+grad of
-the N≈20 LML for E≈256 chains.  The E-last unrolled Cholesky/solve path
-(``ops/batched_linalg``) is the right *layout*, but expressed in XLA each
-leapfrog step lowers to O(n²)≈600+ separate tiny fusions on (n, E) tiles
-— per-fusion dispatch/latency overhead of a few µs each puts the step at
-~13 ms on v5e-1 while the arithmetic is ~µs-scale.  The fix is the same
-as the panel-Cholesky lesson (``ops/blocked_chol.py``): own the whole
-unrolled chain *inside one Mosaic kernel*, where every step is a register
-op with ~ns dependency latency instead of an XLA fusion boundary.
+Hyperposterior HMC/NUTS (``parallel/samplers.py``) and the per-member
+L-BFGS of ``models.exact_gp.fit_ensemble_fused`` are sequential loops
+whose every step needs value+grad of the n≈20 LML for a few hundred to a
+few thousand independent parameter vectors ("lanes").  Lanes are the
+minor axis, and one step is the Gram build, the unrolled ensemble-last
+Cholesky and triangular inverse of ``ops.batched_linalg``, and the
+trace-identity gradient ∂LML/∂θ = ½⟨ααᵀ − P·K⁻¹, ∂K/∂θ⟩ in
+θ = (log amp, log ℓ, log noise) — no AD anywhere.  Every lane runs the
+same elementwise program, so its result does not depend on how many lanes
+share the call: chains sharded over devices reproduce the unsharded run
+bit for bit.  The C·stationary(+White) family is covered (reference
+canonical kernels, ``gaussian_process_transportation.py:12``,
+``example/2D/surface_generalization.py:49``); the value follows sklearn
+semantics, summed over output columns.
 
-The kernel computes, per lane (= per chain/ensemble member), for the
-C·stationary(+White) transport family (reference canonical kernels,
-``gaussian_process_transportation.py:12``,
-``example/2D/surface_generalization.py:49``):
-
-* K = amp·φ(s) + (noise + jitter)·I from the *fixed* per-dimension
-  squared distances and per-chain ARD lengthscales,
-* its Cholesky, α = K⁻¹y, log|K|, the LML value (sklearn semantics,
-  summed over output columns — ``models/exact_gp.py::log_marginal_
-  likelihood``),
-* the full analytic trace-identity gradient ∂LML/∂θ =
-  ½⟨ααᵀ − P·K⁻¹, ∂K/∂θ⟩ in θ = (log amp, log ℓ, log noise) — no AD
-  anywhere (same identity as ``ops/blocked_lml.py``).
-
-Cost: O(n³) register ops per lane-block, n ≤ 32 static; the (n, E)
-working set lives entirely in VMEM/registers.
+:func:`small_lml_value_grad` shares one dataset across lanes,
+:func:`small_lml_value_grad_md` gives every lane its own.  Parameters are
+(T, E) ensemble-last in canonical order
+``[log amp, log ℓ (n_ls rows), log noise (if has_noise)]``.
 """
 from __future__ import annotations
 
-import functools
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+
+from .batched_linalg import cholesky_elast, inv_lower_elast, sum_lanes
 
 Array = jax.Array
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _SQRT3 = math.sqrt(3.0)
 _SQRT5 = math.sqrt(5.0)
-
-
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
 
 
 def _phi(s: Array, family: str) -> Array:
@@ -85,135 +69,74 @@ def _dphi(s: Array, family: str) -> Array:
     raise ValueError(f"unknown stationary family {family!r}")
 
 
-def _lml_kernel(d2_ref, y_ref, th_ref, val_ref, grad_ref, *, n, D, p, n_ls,
-                has_noise, family, jitter):
-    """One ensemble block: lanes = chains; everything per-chain is a
-    register op on (n, EB) / (1, EB) tiles, unrolled over static n."""
-    EB = th_ref.shape[1]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)  # (n, 1) row index
+def _sq_dists(Xt: Array) -> list:
+    """Per-dimension squared distances [(n, n, E|1)] of Xt (n, D, E|1)."""
+    Xf = Xt.astype(jnp.float32)
+    out = []
+    for d in range(Xf.shape[1]):
+        diff = Xf[:, None, d] - Xf[None, :, d]
+        out.append(diff * diff)
+    return out
 
-    log_amp = th_ref[0:1, :]                      # (1, EB)
-    amp = jnp.exp(log_amp)
-    inv_ls2 = [jnp.exp(-2.0 * th_ref[1 + (d if n_ls > 1 else 0):
-                                     2 + (d if n_ls > 1 else 0), :])
-               for d in range(D)]                 # D × (1, EB)
-    if has_noise:
-        noise = jnp.exp(th_ref[1 + n_ls:2 + n_ls, :])   # (1, EB)
-    else:
-        noise = jnp.zeros((1, EB), jnp.float32)
 
-    # ---- Gram columns: s_j, φ_j, K_j ------------------------------------
-    scols = []   # (n, EB) ℓ-scaled squared distance, column j (= row j)
-    phis = []    # (n, EB) φ(s_j)
-    kcols = []   # (n, EB) K column j
-    for j in range(n):
-        s = d2_ref[0 * n:(0 + 1) * n, j:j + 1] * inv_ls2[0]
-        for d in range(1, D):
-            s = s + d2_ref[d * n:(d + 1) * n, j:j + 1] * inv_ls2[d]
-        ph = _phi(s, family)
-        ej = jnp.where(sub == j, 1.0, 0.0)        # (n, 1)
-        kcols.append(amp * ph + ej * (noise + jitter))
-        scols.append(s)
-        phis.append(ph)
+def _value_grad(d2: list, Y: Array, theta: Array, family: str, n_ls: int,
+                has_noise: bool, jitter: float) -> Tuple[Array, Array]:
+    """Per-lane core: d2 [(n, n, E|1)] per input dimension, Y (n, p, E|1),
+    theta (T, E).  Every lane runs the same elementwise program, and every
+    sum is a fixed-order :func:`sum_lanes`, so lane e's result is the same
+    whatever E is."""
+    E = theta.shape[1]
+    n, p = Y.shape[0], Y.shape[1]
+    th = theta.astype(jnp.float32)
+    amp = jnp.exp(th[0])                                      # (E,)
+    inv_ls2 = [jnp.exp(-2.0 * th[1 + (d if n_ls > 1 else 0)])
+               for d in range(len(d2))]
+    noise = jnp.exp(th[1 + n_ls]) if has_noise else jnp.zeros(E, jnp.float32)
 
-    # ---- Cholesky, E-last unrolled --------------------------------------
-    cols = []        # cols[j]: (n, EB) column j of L (zeros above diag)
-    inv_diag = []    # (1, EB) 1/L_jj
-    logdet = jnp.zeros((1, EB), jnp.float32)
-    for j in range(n):
-        v = kcols[j]
-        for k in range(j):
-            v = v - cols[k][j:j + 1, :] * cols[k]
-        piv = v[j:j + 1, :]
-        r = jax.lax.rsqrt(piv)
-        col = jnp.where(sub >= j, v * r, 0.0)
-        cols.append(col)
-        inv_diag.append(r)
-        logdet = logdet + jnp.log(piv)
-
-    # ---- α = K⁻¹ y (p output columns, y fixed across chains) ------------
-    z = []  # forward: L z = y ; z[i]: (p, EB)
-    for i in range(n):
-        s = jnp.broadcast_to(y_ref[:, i:i + 1], (p, EB))
-        for k in range(i):
-            s = s - cols[k][i:i + 1, :] * z[k]
-        z.append(s * inv_diag[i])
-    a = [None] * n  # backward: Lᵀ α = z
-    for i in reversed(range(n)):
-        s = z[i]
-        for k in range(i + 1, n):
-            s = s - cols[i][k:k + 1, :] * a[k]
-        a[i] = s * inv_diag[i]
-
-    quad = jnp.zeros((1, EB), jnp.float32)
-    for i in range(n):
-        quad = quad + jnp.sum(
-            jnp.broadcast_to(y_ref[:, i:i + 1], (p, EB)) * a[i],
-            axis=0, keepdims=True,
-        )
+    s = d2[0] * inv_ls2[0]
+    for d in range(1, len(d2)):
+        s = s + d2[d] * inv_ls2[d]                            # (n, n, E)
+    ph = _phi(s, family)
+    eye = jnp.eye(n, dtype=jnp.float32)[:, :, None]
+    K = amp * ph + eye * (noise + jitter)
+    L = cholesky_elast(K)
+    Li = inv_lower_elast(L)
+    K_inv = sum_lanes(Li[:, :, None] * Li[:, None, :])        # L⁻ᵀL⁻¹ (n, n, E)
+    Yb = jnp.broadcast_to(Y.astype(jnp.float32), (n, p, E))
+    alpha = sum_lanes(jnp.moveaxis(K_inv[:, :, None] * Yb[None], 1, 0))  # (n, p, E)
+    diag_L = jnp.stack([L[i, i] for i in range(n)], axis=0)   # (n, E)
+    logdet = 2.0 * sum_lanes(jnp.log(diag_L))
+    quad = sum_lanes((Yb * alpha).reshape(n * p, E))
     val = -0.5 * quad - p * (0.5 * logdet + 0.5 * n * _LOG_2PI)
-    val_ref[:, :] = val
 
-    # α stacked per output column: (n, EB) each
-    astack = [jnp.concatenate([a[i][q:q + 1, :] for i in range(n)], axis=0)
-              for q in range(p)]
+    aa = alpha[:, None, 0] * alpha[None, :, 0]
+    for q in range(1, p):
+        aa = aa + alpha[:, None, q] * alpha[None, :, q]
+    W = 0.5 * (aa - p * K_inv)                                # (n, n, E)
 
-    # ---- K⁻¹ rows: solve L Lᵀ V = I, rows of the RHS kept (n, EB) -------
-    U = []  # forward: U_i = L⁻¹ row i applied to I
-    for i in range(n):
-        s = jnp.where(sub == i, 1.0, 0.0) * jnp.ones((1, EB), jnp.float32)
-        for k in range(i):
-            s = s - cols[k][i:i + 1, :] * U[k]
-        U.append(s * inv_diag[i])
-    V = [None] * n  # backward: V_i = row i of K⁻¹
-    for i in reversed(range(n)):
-        s = U[i]
-        for k in range(i + 1, n):
-            s = s - cols[i][k:k + 1, :] * V[k]
-        V[i] = s * inv_diag[i]
+    def total(x):                                             # (n, n, E) -> (E,)
+        return sum_lanes(x.reshape(n * n, E))
 
-    # ---- trace-identity gradient ----------------------------------------
-    g_amp = jnp.zeros((1, EB), jnp.float32)
-    g_ls = [jnp.zeros((1, EB), jnp.float32) for _ in range(n_ls)]
-    g_noise = jnp.zeros((1, EB), jnp.float32)
-    for i in range(n):
-        Wi = -float(p) * V[i]
-        for q in range(p):
-            Wi = Wi + astack[q][i:i + 1, :] * astack[q]
-        Wi = 0.5 * Wi                              # ½(ααᵀ − P·K⁻¹) row i
-        g_amp = g_amp + jnp.sum(Wi * (amp * phis[i]), axis=0, keepdims=True)
-        Wdk = Wi * (amp * _dphi(scols[i], family))
-        for d in range(D):
-            contrib = jnp.sum(
-                Wdk * d2_ref[d * n:(d + 1) * n, i:i + 1],
-                axis=0, keepdims=True,
-            )
-            li = d if n_ls > 1 else 0
-            g_ls[li] = g_ls[li] + contrib
-        if has_noise:
-            g_noise = g_noise + jnp.sum(
-                jnp.where(sub == i, Wi, 0.0), axis=0, keepdims=True
-            )
-    rows = [g_amp]
-    for li in range(n_ls):
-        rows.append(g_ls[li] * (-2.0 * inv_ls2[li if n_ls > 1 else 0]))
+    g_amp = total(W * amp * ph)
+    Wdk = W * amp * _dphi(s, family)
+    per_dim = [total(Wdk * d2[d]) * (-2.0 * inv_ls2[d]) for d in range(len(d2))]
+    if n_ls == 1:
+        g = per_dim[0]
+        for d in range(1, len(d2)):
+            g = g + per_dim[d]
+        per_dim = [g]
+    out = [g_amp] + per_dim
     if has_noise:
-        rows.append(noise * g_noise)
-    grad_ref[:, :] = jnp.concatenate(rows, axis=0)
+        out.append(noise * sum_lanes(jnp.stack([W[i, i] for i in range(n)])))
+    return val, jnp.stack(out, axis=0)
 
 
-def _sq_dists(X: Array) -> Array:
-    """(D·n, n) stacked per-dimension squared distances (fixed data)."""
-    n, D = X.shape
-    Xf = X.astype(jnp.float32)
-    d2 = [(Xf[:, d, None] - Xf[None, :, d]) ** 2 for d in range(D)]
-    return jnp.concatenate(d2, axis=0)
+def _check_layout(theta, n_ls, has_noise):
+    T = 1 + n_ls + int(has_noise)
+    if theta.shape[0] != T:
+        raise ValueError(f"theta rows {theta.shape[0]} != layout T={T}")
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("family", "n_ls", "has_noise", "jitter", "eb", "interpret"),
-)
 def small_lml_value_grad(
     X: Array,
     Y: Array,
@@ -222,190 +145,15 @@ def small_lml_value_grad(
     n_ls: int = 1,
     has_noise: bool = True,
     jitter: float = 1e-10,
-    eb: int = 128,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array]:
-    """(LML values (E,), gradients (T, E)) for E chains of the small-N GP.
-
-    ``theta`` is (T, E) ensemble-last in canonical order
-    ``[log amp, log ℓ (n_ls rows), log noise (if has_noise)]``;
-    T = 1 + n_ls + has_noise.  X (n, D) and Y (n, p) are fixed data shared
-    by every chain; n ≤ 32 (unrolled), p ≤ 8.
-    """
-    if interpret is None:
-        interpret = not _on_tpu()
-    n, D = X.shape
+    """(LML values (E,), gradients (T, E)) for E parameter vectors of one
+    small GP: X (n, D) and Y (n, p) are shared by every lane."""
+    _check_layout(theta, n_ls, has_noise)
     Y2 = Y if Y.ndim == 2 else Y[:, None]
-    p = Y2.shape[1]
-    if n > 32:
-        raise ValueError(f"fused small-LML kernel is for n <= 32, got {n}")
-    T = 1 + n_ls + int(has_noise)
-    if theta.shape[0] != T:
-        raise ValueError(f"theta rows {theta.shape[0]} != layout T={T}")
-    E = theta.shape[1]
-    Ep = -(-E // eb) * eb
-    th = theta.astype(jnp.float32)
-    if Ep > E:
-        th = jnp.pad(th, ((0, 0), (0, Ep - E)), mode="edge")
-
-    d2 = _sq_dists(X)
-    Yt = Y2.astype(jnp.float32).T  # (p, n)
-
-    kern = functools.partial(
-        _lml_kernel, n=n, D=D, p=p, n_ls=n_ls,
-        has_noise=has_noise, family=family, jitter=jitter,
-    )
-    val, grad = pl.pallas_call(
-        kern,
-        grid=(Ep // eb,),
-        in_specs=[
-            pl.BlockSpec((D * n, n), lambda i: (0, 0)),
-            pl.BlockSpec((p, n), lambda i: (0, 0)),
-            pl.BlockSpec((T, eb), lambda i: (0, i)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, eb), lambda i: (0, i)),
-            pl.BlockSpec((T, eb), lambda i: (0, i)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, Ep), jnp.float32),
-            jax.ShapeDtypeStruct((T, Ep), jnp.float32),
-        ),
-        interpret=bool(interpret),
-    )(d2, Yt, th)
-    return val[0, :E], grad[:, :E]
+    return _value_grad(_sq_dists(X[:, :, None]), Y2[:, :, None], theta, family,
+                       n_ls, has_noise, jitter)
 
 
-def _lml_kernel_md(d2_ref, y_ref, th_ref, val_ref, grad_ref, *, n, D, p, n_ls,
-                   has_noise, family, jitter):
-    """Multi-data variant: every lane carries ITS OWN dataset.
-
-    d2_ref: (D·n·n, EB) per-lane squared distances, row d·n² + j·n + i =
-    Δ²_d between points i and j of lane e's dataset (so a column slice of
-    length n is column j of the lane's distance matrix along dim d);
-    y_ref: (p·n, EB) per-lane targets, row q·n + i = Y[i, q].
-    Same math as :func:`_lml_kernel` otherwise — used by the batched
-    hyperparameter-fit ensembles where each member owns a different
-    (X, Y) (``models.exact_gp.fit_ensemble_fused``).
-    """
-    EB = th_ref.shape[1]
-    sub = jax.lax.broadcasted_iota(jnp.int32, (n, 1), 0)
-
-    amp = jnp.exp(th_ref[0:1, :])
-    inv_ls2 = [jnp.exp(-2.0 * th_ref[1 + (d if n_ls > 1 else 0):
-                                     2 + (d if n_ls > 1 else 0), :])
-               for d in range(D)]
-    if has_noise:
-        noise = jnp.exp(th_ref[1 + n_ls:2 + n_ls, :])
-    else:
-        noise = jnp.zeros((1, EB), jnp.float32)
-
-    def d2col(d, j):
-        return d2_ref[d * n * n + j * n: d * n * n + (j + 1) * n, :]  # (n, EB)
-
-    def yrow(i):  # (p, EB)
-        return jnp.concatenate(
-            [y_ref[q * n + i: q * n + i + 1, :] for q in range(p)], axis=0
-        )
-
-    scols, phis, kcols = [], [], []
-    for j in range(n):
-        s = d2col(0, j) * inv_ls2[0]
-        for d in range(1, D):
-            s = s + d2col(d, j) * inv_ls2[d]
-        ph = _phi(s, family)
-        ej = jnp.where(sub == j, 1.0, 0.0)
-        kcols.append(amp * ph + ej * (noise + jitter))
-        scols.append(s)
-        phis.append(ph)
-
-    cols, inv_diag = [], []
-    logdet = jnp.zeros((1, EB), jnp.float32)
-    for j in range(n):
-        v = kcols[j]
-        for k in range(j):
-            v = v - cols[k][j:j + 1, :] * cols[k]
-        piv = v[j:j + 1, :]
-        r = jax.lax.rsqrt(piv)
-        cols.append(jnp.where(sub >= j, v * r, 0.0))
-        inv_diag.append(r)
-        logdet = logdet + jnp.log(piv)
-
-    z = []
-    for i in range(n):
-        s = yrow(i)
-        for k in range(i):
-            s = s - cols[k][i:i + 1, :] * z[k]
-        z.append(s * inv_diag[i])
-    a = [None] * n
-    for i in reversed(range(n)):
-        s = z[i]
-        for k in range(i + 1, n):
-            s = s - cols[i][k:k + 1, :] * a[k]
-        a[i] = s * inv_diag[i]
-
-    quad = jnp.zeros((1, EB), jnp.float32)
-    for i in range(n):
-        quad = quad + jnp.sum(yrow(i) * a[i], axis=0, keepdims=True)
-    val_ref[:, :] = -0.5 * quad - p * (0.5 * logdet + 0.5 * n * _LOG_2PI)
-
-    astack = [jnp.concatenate([a[i][q:q + 1, :] for i in range(n)], axis=0)
-              for q in range(p)]
-
-    U = []
-    for i in range(n):
-        s = jnp.where(sub == i, 1.0, 0.0) * jnp.ones((1, EB), jnp.float32)
-        for k in range(i):
-            s = s - cols[k][i:i + 1, :] * U[k]
-        U.append(s * inv_diag[i])
-    V = [None] * n
-    for i in reversed(range(n)):
-        s = U[i]
-        for k in range(i + 1, n):
-            s = s - cols[i][k:k + 1, :] * V[k]
-        V[i] = s * inv_diag[i]
-
-    g_amp = jnp.zeros((1, EB), jnp.float32)
-    g_ls = [jnp.zeros((1, EB), jnp.float32) for _ in range(n_ls)]
-    g_noise = jnp.zeros((1, EB), jnp.float32)
-    for i in range(n):
-        Wi = -float(p) * V[i]
-        for q in range(p):
-            Wi = Wi + astack[q][i:i + 1, :] * astack[q]
-        Wi = 0.5 * Wi
-        g_amp = g_amp + jnp.sum(Wi * (amp * phis[i]), axis=0, keepdims=True)
-        Wdk = Wi * (amp * _dphi(scols[i], family))
-        for d in range(D):
-            contrib = jnp.sum(Wdk * d2col(d, i), axis=0, keepdims=True)
-            li = d if n_ls > 1 else 0
-            g_ls[li] = g_ls[li] + contrib
-        if has_noise:
-            g_noise = g_noise + jnp.sum(
-                jnp.where(sub == i, Wi, 0.0), axis=0, keepdims=True
-            )
-    rows = [g_amp]
-    for li in range(n_ls):
-        rows.append(g_ls[li] * (-2.0 * inv_ls2[li if n_ls > 1 else 0]))
-    if has_noise:
-        rows.append(noise * g_noise)
-    grad_ref[:, :] = jnp.concatenate(rows, axis=0)
-
-
-def _sq_dists_md(Xe: Array) -> Array:
-    """(D·n·n, E) per-lane squared distances from Xe (E, n, D)."""
-    E, n, D = Xe.shape
-    Xf = Xe.astype(jnp.float32)
-    blocks = []
-    for d in range(D):
-        diff = Xf[:, None, :, d] - Xf[:, :, None, d]      # (E, j, i)
-        blocks.append(jnp.transpose(diff * diff, (1, 2, 0)).reshape(n * n, E))
-    return jnp.concatenate(blocks, axis=0)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("family", "n_ls", "has_noise", "jitter", "eb", "interpret"),
-)
 def small_lml_value_grad_md(
     Xe: Array,
     Ye: Array,
@@ -414,131 +162,13 @@ def small_lml_value_grad_md(
     n_ls: int = 1,
     has_noise: bool = True,
     jitter: float = 1e-10,
-    eb: int = 128,
-    interpret: Optional[bool] = None,
 ) -> Tuple[Array, Array]:
-    """Multi-data fused LML: lane e evaluates ITS OWN dataset
-    (Xe[e], Ye[e]) at theta[:, e].  Shapes: Xe (E, n, D), Ye (E, n, p),
-    theta (T, E) → ((E,), (T, E)).  The batched-hyperopt building block
-    (each transport-ensemble member fits its own residual dataset)."""
-    if interpret is None:
-        interpret = not _on_tpu()
-    E, n, D = Xe.shape
+    """Multi-data LML: lane e evaluates ITS OWN dataset (Xe[e], Ye[e]) at
+    theta[:, e].  Shapes: Xe (E, n, D), Ye (E, n, p), theta (T, E) →
+    ((E,), (T, E)).  The batched-hyperopt building block (each
+    transport-ensemble member fits its own residual dataset)."""
+    _check_layout(theta, n_ls, has_noise)
     Ye3 = Ye if Ye.ndim == 3 else Ye[:, :, None]
-    p = Ye3.shape[2]
-    if n > 32:
-        raise ValueError(f"fused small-LML kernel is for n <= 32, got {n}")
-    T = 1 + n_ls + int(has_noise)
-    if theta.shape[0] != T:
-        raise ValueError(f"theta rows {theta.shape[0]} != layout T={T}")
-    Ep = -(-E // eb) * eb
-    th = theta.astype(jnp.float32)
-    d2 = _sq_dists_md(Xe)
-    Yt = jnp.transpose(Ye3.astype(jnp.float32), (2, 1, 0)).reshape(p * n, E)
-    if Ep > E:
-        th = jnp.pad(th, ((0, 0), (0, Ep - E)), mode="edge")
-        d2 = jnp.pad(d2, ((0, 0), (0, Ep - E)), mode="edge")
-        Yt = jnp.pad(Yt, ((0, 0), (0, Ep - E)), mode="edge")
-
-    kern = functools.partial(
-        _lml_kernel_md, n=n, D=D, p=p, n_ls=n_ls,
-        has_noise=has_noise, family=family, jitter=jitter,
-    )
-    val, grad = pl.pallas_call(
-        kern,
-        grid=(Ep // eb,),
-        in_specs=[
-            pl.BlockSpec((D * n * n, eb), lambda i: (0, i)),
-            pl.BlockSpec((p * n, eb), lambda i: (0, i)),
-            pl.BlockSpec((T, eb), lambda i: (0, i)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, eb), lambda i: (0, i)),
-            pl.BlockSpec((T, eb), lambda i: (0, i)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, Ep), jnp.float32),
-            jax.ShapeDtypeStruct((T, Ep), jnp.float32),
-        ),
-        interpret=bool(interpret),
-    )(d2, Yt, th)
-    return val[0, :E], grad[:, :E]
-
-
-def small_lml_value_grad_md_ref(
-    Xe: Array,
-    Ye: Array,
-    theta: Array,
-    family: str = "rbf",
-    n_ls: int = 1,
-    has_noise: bool = True,
-    jitter: float = 1e-10,
-) -> Tuple[Array, Array]:
-    """Pure-XLA reference of :func:`small_lml_value_grad_md` (vmap of the
-    shared-data reference over lanes)."""
-    Ye3 = Ye if Ye.ndim == 3 else Ye[:, :, None]
-
-    def one(x, y, th):
-        v, g = small_lml_value_grad_ref(
-            x, y, th[:, None], family=family, n_ls=n_ls,
-            has_noise=has_noise, jitter=jitter,
-        )
-        return v[0], g[:, 0]
-
-    vals, grads = jax.vmap(one)(Xe, Ye3, jnp.transpose(theta, (1, 0)))
-    return vals, jnp.transpose(grads, (1, 0))
-
-
-def small_lml_value_grad_ref(
-    X: Array,
-    Y: Array,
-    theta: Array,
-    family: str = "rbf",
-    n_ls: int = 1,
-    has_noise: bool = True,
-    jitter: float = 1e-10,
-) -> Tuple[Array, Array]:
-    """Pure-XLA E-last reference of :func:`small_lml_value_grad` (goldens,
-    and the fallback batched path off-TPU)."""
-    n, D = X.shape
-    Y2 = (Y if Y.ndim == 2 else Y[:, None]).astype(jnp.float32)
-    p = Y2.shape[1]
-    th = theta.astype(jnp.float32)
-    E = th.shape[1]
-    amp = jnp.exp(th[0])                                   # (E,)
-    ls_rows = th[1:1 + n_ls]                               # (n_ls, E)
-    inv_ls2 = jnp.exp(-2.0 * (ls_rows if n_ls > 1
-                              else jnp.broadcast_to(ls_rows, (D, E))))
-    noise = jnp.exp(th[1 + n_ls]) if has_noise else jnp.zeros(E)
-
-    Xf = X.astype(jnp.float32)
-    d2 = jnp.stack(
-        [(Xf[:, d, None] - Xf[None, :, d]) ** 2 for d in range(D)], axis=0
-    )                                                      # (D, n, n)
-    s = jnp.einsum("dij,de->ije", d2, inv_ls2)             # (n, n, E)
-    ph = _phi(s, family)
-    eye = jnp.eye(n, dtype=jnp.float32)[:, :, None]
-    K = amp[None, None, :] * ph + eye * (noise + jitter)[None, None, :]
-
-    from .batched_linalg import cholesky_elast, cho_solve_elast, inv_lower_elast
-
-    L = cholesky_elast(K)
-    Yb = jnp.broadcast_to(Y2[:, :, None], (n, p, E))
-    alpha = cho_solve_elast(L, Yb)                         # (n, p, E)
-    Li = inv_lower_elast(L)
-    K_inv = jnp.einsum("kie,kje->ije", Li, Li)
-    logdet = 2.0 * jnp.sum(jnp.log(jnp.einsum("iie->ie", L)), axis=0)
-    quad = jnp.einsum("ipe,ip->e", alpha, Y2)
-    val = -0.5 * quad - p * (0.5 * logdet + 0.5 * n * _LOG_2PI)
-
-    W = 0.5 * (jnp.einsum("ipe,jpe->ije", alpha, alpha) - p * K_inv)
-    g_amp = jnp.einsum("ije,ije->e", W, amp[None, None, :] * ph)
-    dk = amp[None, None, :] * _dphi(s, family)
-    per_dim = jnp.einsum("ije,dij->de", W * dk, d2)        # (D, E)
-    g_ls_full = per_dim * (-2.0 * inv_ls2)                 # (D, E)
-    g_ls = g_ls_full if n_ls > 1 else jnp.sum(g_ls_full, axis=0, keepdims=True)
-    rows = [g_amp[None], g_ls]
-    if has_noise:
-        g_noise = noise * jnp.einsum("iie->e", W)
-        rows.append(g_noise[None])
-    return val, jnp.concatenate(rows, axis=0)
+    return _value_grad(_sq_dists(jnp.moveaxis(Xe, 0, -1)),
+                       jnp.moveaxis(Ye3, 0, -1), theta, family, n_ls, has_noise,
+                       jitter)

@@ -1,8 +1,8 @@
 """Dense PSD linear algebra helpers on top of XLA's batched kernels.
 
 All functions are jit/vmap-friendly and shape-static.  XLA lowers
-``cholesky``/``triangular_solve`` to blocked TPU kernels; the Pallas
-fused-Gram path (``ops.pallas_gram``) feeds these at large N.
+``cholesky``/``triangular_solve`` to cuSOLVER/cuBLAS on a GPU and LAPACK
+on the CPU.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ Array = jax.Array
 
 
 def add_diagonal(K: Array, value) -> Array:
-    """K + value * I without materializing an identity (fuses on TPU)."""
+    """K + value * I without materializing an identity (fuses into the consumer)."""
     n = K.shape[-1]
     idx = jnp.arange(n)
     return K.at[..., idx, idx].add(value)

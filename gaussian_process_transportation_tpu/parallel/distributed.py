@@ -5,7 +5,7 @@ mesh-first code paths scale from 1 chip to a multi-host slice: call
 :func:`initialize` once per process, then :func:`multihost_mesh` to lay the
 'ens' axis across hosts (chains/ensemble members never communicate, so
 their traffic pattern is DCN-friendly) and the 'data' axis within a host
-(Gram/trajectory sharding rides ICI).
+(Gram/trajectory sharding rides the intra-host interconnect).
 
 On a single host these degrade to the local helpers, so the driver's
 virtual-CPU dry run and a real pod run share one code path.

@@ -70,7 +70,7 @@ def posterior_transport_ensemble(
     """E posterior draws of the transported trajectory (SMC particle set).
 
     Each member transports the trajectory through an independent posterior
-    sample of the delta map — the TPU-native version of the reference's
+    sample of the delta map — the batched version of the reference's
     ``sample_transportation`` (10 samples in a Python loop) scaled to ≥10k
     members sharded over the mesh.
     """

@@ -4,7 +4,7 @@ The framework's parallel axes (SURVEY.md §2d — all *new* relative to the
 single-process reference):
 
 * ``ens``  — ensemble/chain axis: transport ensembles, NUTS chains,
-             multi-restart hyperopt.  Pure data parallelism over ICI.
+             multi-restart hyperopt.  Pure data parallelism.
 * ``data`` — within-problem axis: trajectory/Gram rows for large-N
              problems (sequence-parallel analog).
 

@@ -221,15 +221,14 @@ def hmc_batched(
 
     ``lp_and_grad_batched(q (T, E)) -> (lp (E,), grad (T, E))`` evaluates
     every chain at once — the caller supplies the batched gradient
-    directly (e.g. the fused Pallas small-LML kernel,
+    directly (e.g. the fused small-LML of
     ``ops.fused_lml.small_lml_value_grad``), so no AD and no per-chain
     ``vmap`` ever runs.
 
-    Why not ``vmap(hmc)``: the round-3 cost model showed each vmapped
-    leapfrog step lowers to hundreds of tiny XLA fusions on (n, E) tiles
-    (~13 ms/step at E=256 on v5e-1 — dispatch overhead, not arithmetic).
-    Here one leapfrog step is a handful of (T, E) elementwise ops plus ONE
-    fused kernel call.  Step size and mass adapt per chain (dual averaging
+    Why not ``vmap(hmc)``: each vmapped leapfrog step lowers to hundreds
+    of tiny XLA fusions on (n, E) tiles, a cost set by launches rather
+    than arithmetic.  Here one leapfrog step is a handful of (T, E)
+    elementwise ops plus ONE batched value+grad call.  Step size and mass adapt per chain (dual averaging
     / Welford on (E,)-vectors), matching :func:`hmc` chainwise.
 
     All randomness derives PER CHAIN from ``chain_keys[e]`` (folded by
@@ -415,13 +414,13 @@ def _nuts_batched_machinery(lp_and_grad_batched, chain_keys, T, max_depth):
     Same tree policy as the single-chain :func:`nuts` (iterative doubling,
     multinomial proposal across the trajectory, no intra-subtree U-turn
     checks), evaluated for ALL lanes at once over the caller's batched
-    value+grad — e.g. the fused Pallas small-LML kernel — so one doubling
-    round's 2^depth leapfrog steps are each a handful of (T, E) elementwise
-    ops plus ONE fused kernel call (VERDICT r4 #5).
+    value+grad — e.g. the fused small-LML — so one doubling round's
+    2^depth leapfrog steps are each a handful of (T, E) elementwise ops
+    plus ONE batched value+grad call.
 
     Per-lane dynamic tree depth is handled with masks: a round runs while
     ANY lane is still building (``lax.cond`` skips whole rounds once every
-    lane has turned/diverged — only the taken branch executes on TPU), and
+    lane has turned/diverged — only the taken branch executes), and
     finished lanes' tree state is frozen by per-lane ``where``.  Worst lane
     in the batch sets the round count; for the GP hyperposterior workload
     typical depths are 2–5 of ``max_depth``.
@@ -554,7 +553,7 @@ def nuts_batched(
     chain_keys: Optional[Array] = None,
 ) -> Tuple[Array, dict]:
     """All-chains-in-one-scan NUTS over a batched value+grad — the fused
-    twin of :func:`hmc_batched` for :func:`nuts` (VERDICT r4 #5).
+    twin of :func:`hmc_batched` for :func:`nuts`.
 
     Same contract as :func:`hmc_batched`: ``lp_and_grad_batched(q (T, E))
     -> (lp (E,), grad (T, E))``, finite-guarded by the caller; returns
@@ -836,9 +835,9 @@ def sample_gp_posterior(
 
     Fast path: for the C·stationary(+White) family at n ≤ 32 with
     ``algorithm='hmc'``, all chains run ensemble-last in ONE scan
-    (:func:`hmc_batched`) over the fused Pallas LML value+grad kernel
-    (``ops.fused_lml``) — measured ~50× the vmapped-AD path on v5e-1
-    (the per-leapfrog-step cost is XLA fusion dispatch, not arithmetic).
+    (:func:`hmc_batched`) over the per-lane LML value+grad
+    (``ops.fused_lml``) instead of vmapped AD, whose per-leapfrog cost is
+    launches, not arithmetic.
     """
     from ..models.exact_gp import log_marginal_likelihood, small_lml_theta_layout
 
@@ -855,14 +854,15 @@ def sample_gp_posterior(
     )
     if fused is not None:
         use_fused = bool(fused) and use_fused
-    # NOTE on distributed determinism: the fused path's random streams are
-    # per-chain (sharding-invariant), and hmc_batched itself is bit-equal
-    # under shard_map (tests/test_fused_lml.py::test_hmc_batched_bit_
-    # invariant_under_shard_map) — but the LML gradient's f32 reduction
-    # order can differ with shard width (XLA reassociation, ~1e-7), which a
-    # chaotic accept/reject amplifies.  Callers needing bit-identical
-    # mesh/no-mesh chains (e.g. the multihost equality gate) should pass
-    # ``fused=False``.
+    # NOTE on distributed determinism: random streams are per chain
+    # (sharding-invariant) and hmc_batched itself is bit-equal under
+    # shard_map.  The fused path's LML runs one elementwise program per lane
+    # (``ops.fused_lml``), so a chain's arithmetic does not depend on how
+    # many chains share a device: sharded and unsharded runs are
+    # bit-identical.  The generic path's vmapped AD reduces over the Gram
+    # with XLA reductions compiled for the per-device batch; bit-identical
+    # on the CPU (the multihost gate), but on a GPU the last bits may
+    # differ and accept/reject amplifies them (PERF.md).
     if use_fused:
         return _sample_gp_posterior_fused(
             kernel, X, Y2, key, layout, lo, hi, num_chains, num_warmup,
@@ -905,14 +905,14 @@ def sample_gp_posterior(
 
 
 @functools.lru_cache(maxsize=64)
-def _fused_local_runner(family, n_ls, has_noise, jitter, use_kernel,
+def _fused_local_runner(family, n_ls, has_noise, jitter,
                         num_warmup, num_samples, kw_items, algo="hmc"):
     """Jitted (X, Y2, lo_c, hi_c, q0, key) -> {hmc,nuts}_batched(...),
     cached on the static config so repeat `sample_gp_posterior` calls hit
     the SAME jit wrapper — a fresh `jax.jit(closure)` per call retraces
     every time (~1 s of pure host work per call at the bench workload,
     dwarfing the 160 ms of device time on the fused path)."""
-    from ..ops.fused_lml import small_lml_value_grad, small_lml_value_grad_ref
+    from ..ops.fused_lml import small_lml_value_grad
 
     kw = dict(kw_items)
     sampler = hmc_batched if algo == "hmc" else nuts_batched
@@ -920,8 +920,7 @@ def _fused_local_runner(family, n_ls, has_noise, jitter, use_kernel,
     @jax.jit
     def run(X, Y2, lo_c, hi_c, q0_te, cks):
         def lp_and_grad(theta_te):
-            fn = small_lml_value_grad if use_kernel else small_lml_value_grad_ref
-            val, grad = fn(
+            val, grad = small_lml_value_grad(
                 X, Y2, theta_te, family=family, n_ls=n_ls,
                 has_noise=has_noise, jitter=jitter,
             )
@@ -947,13 +946,13 @@ def _fused_local_runner(family, n_ls, has_noise, jitter, use_kernel,
 
 
 @functools.lru_cache(maxsize=64)
-def _fused_mesh_runner(mesh, family, n_ls, has_noise, jitter, use_kernel,
+def _fused_mesh_runner(mesh, family, n_ls, has_noise, jitter,
                        num_warmup, num_samples, kw_items, algo="hmc"):
     """Mesh twin of :func:`_fused_local_runner`: the jitted ``shard_map``
     runner cached on (mesh, static config) — a fresh ``jax.jit(shard_map)``
     per call re-incurs the ~1 s host-side retrace the local cache was added
-    to avoid (ADVICE r4)."""
-    from ..ops.fused_lml import small_lml_value_grad, small_lml_value_grad_ref
+    to avoid."""
+    from ..ops.fused_lml import small_lml_value_grad
 
     try:
         from jax import shard_map
@@ -965,8 +964,7 @@ def _fused_mesh_runner(mesh, family, n_ls, has_noise, jitter, use_kernel,
 
     def run_local(X, Y2, lo_c, hi_c, q0_te, cks):
         def lp_and_grad(theta_te):
-            fn = small_lml_value_grad if use_kernel else small_lml_value_grad_ref
-            val, grad = fn(
+            val, grad = small_lml_value_grad(
                 X, Y2, theta_te, family=family, n_ls=n_ls,
                 has_noise=has_noise, jitter=jitter,
             )
@@ -1003,9 +1001,9 @@ def _fused_mesh_runner(mesh, family, n_ls, has_noise, jitter, use_kernel,
 
 def _sample_gp_posterior_fused(
     kernel, X, Y2, key, layout, lo, hi, num_chains, num_warmup, num_samples,
-    mesh, jitter, use_kernel=None, algorithm="hmc", **kw,
+    mesh, jitter, algorithm="hmc", **kw,
 ):
-    """Ensemble-last chains over the fused Pallas LML kernel.
+    """Ensemble-last chains over the per-lane small-LML value+grad.
 
     Same target as the generic path (LML + the soft bound barrier), same
     init distribution; the barrier gradient is closed-form (softplus' =
@@ -1014,23 +1012,18 @@ def _sample_gp_posterior_fused(
     embarrassingly parallel, so each device runs its lanes independently
     with a device-folded key.
     """
-    from ..ops.fused_lml import small_lml_value_grad, small_lml_value_grad_ref
-
     family, n_ls, has_noise, perm = layout
     inv_perm = np.argsort(perm)
     T = lo.shape[0]
     lo_c = jnp.asarray(lo)[perm][:, None]
     hi_c = jnp.asarray(hi)[perm][:, None]
 
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-
     k_init, k_run = jax.random.split(key)
     u = jax.random.uniform(k_init, (num_chains, T))
     inits = lo + u * (hi - lo) * 0.5 + 0.25 * (hi - lo)  # central half of the box
     inits_te = jnp.transpose(inits[:, perm], (1, 0))  # (T, E) canonical order
-    # per-CHAIN key streams: the draws depend only on a chain's own key, so
-    # sharded and unsharded runs are bit-identical (multihost stage-3 gate)
+    # per-CHAIN key streams: the random draws depend only on a chain's own
+    # key, so sharded and unsharded runs are bit-identical
     chain_keys = jax.random.split(k_run, num_chains)
 
     if mesh is not None and num_chains % mesh.shape["ens"]:
@@ -1039,7 +1032,7 @@ def _sample_gp_posterior_fused(
         mesh = None
     if mesh is None:
         run = _fused_local_runner(
-            family, n_ls, bool(has_noise), float(jitter), bool(use_kernel),
+            family, n_ls, bool(has_noise), float(jitter),
             int(num_warmup), int(num_samples), tuple(sorted(kw.items())),
             algo=algorithm,
         )
@@ -1051,7 +1044,7 @@ def _sample_gp_posterior_fused(
         chain_keys = global_put(chain_keys, NamedSharding(mesh, P("ens")))
         run = _fused_mesh_runner(
             mesh, family, n_ls, bool(has_noise), float(jitter),
-            bool(use_kernel), int(num_warmup), int(num_samples),
+            int(num_warmup), int(num_samples),
             tuple(sorted(kw.items())), algo=algorithm,
         )
         samples_c, info = run(X, Y2, lo_c, hi_c, inits_te, chain_keys)

@@ -2,8 +2,7 @@
 
 Extends the single-chip panel LML of ``ops/blocked_lml.py`` to the
 block-cyclic distributed factor of ``parallel/sharded_chol.py`` — GP
-hyperparameter optimization past one chip's HBM (N ≈ 100k on a v5e-8),
-a regime the reference cannot touch at all (its active-learning GP
+hyperparameter optimization past one device's memory, a regime the reference cannot touch at all (its active-learning GP
 subsets to 20 000 points *and* fits only the subset,
 ``policy_transportation/models/gaussian_process_al.py:16``).
 
@@ -28,14 +27,13 @@ static sizes — the same discipline as ``sharded_chol``):
   substitution/logdet bodies.
 
 No iterative refinement on α here (single-chip ``blocked_lml`` has it):
-at HIGHEST precision it is unnecessary, and at HIGH the ~1e-3 gradient
-error is far below what L-BFGS needs.  Cited reference semantics:
+at HIGHEST precision, the default, it is unnecessary.  Cited reference semantics:
 sklearn-equivalent LML and gradient, ``gaussian_process.py:17-29``.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -73,8 +71,8 @@ def _tri_inv_body(L_loc, linv_loc, d, axis, block, D, Pl, Np, precision):
     row 0, slot height H_j = Np − j·D·B, zero overhang).
 
     ``lax.fori_loop`` over the Pnl global panel steps — the body compiles
-    ONCE (the unrolled form put O(Pnl·Pl) GEMM/slice HLOs in the program:
-    424 s of the r4 driver dryrun's 535 s, VERDICT r4 #3).  The Pl-slot
+    ONCE (the unrolled form put O(Pnl·Pl) GEMM/slice HLOs in the program
+    and dominated its compile time).  The Pl-slot
     inner loop stays unrolled so every slot keeps its exact static
     trapezoid height; the now-dynamic panel index selects its slot with
     ``lax.switch`` (one slot touched, not a masked sum over all), and
@@ -155,8 +153,7 @@ def _lml_trace_body(
     ``Z_ext`` is the ℓ-scaled padded input (replicated).
 
     Same compile-once ``fori_loop``/``switch``/``cond`` structure as
-    :func:`_tri_inv_body` (VERDICT r4 #3) — the unrolled pair loop was the
-    other half of the r4 dryrun's 424 s step-6 compile.
+    :func:`_tri_inv_body`, for the same compile-time reason.
     """
     Pnl = Pl * D
     nd = Z_ext.shape[1]
@@ -266,15 +263,12 @@ def sharded_lml_value_and_grad(
     block: int = 512,
     jitter: float = 1e-6,
     precision=_HIGHEST,
-    interpret: Optional[bool] = None,
 ):
     """(LML, (∂/∂log amp, ∂/∂log ℓ (D_in,), ∂/∂log σ²)) — fully distributed.
 
     X (n, D_in) and Y (n, p) are replicated inputs; every O(N²) object
     (Gram, factor, L⁻¹) lives block-cyclically sharded over ``axis``.
     """
-    if interpret is None:
-        interpret = jax.devices()[0].platform != "tpu"
     D = mesh.shape[axis]
     n, nd = X.shape
     Np, Pnl, Pl = _plan(n, block, D)
@@ -303,7 +297,7 @@ def sharded_lml_value_and_grad(
             Z_rep, d, block, D, Pl, Np, amp_v[0], nzj_v[0], family
         )
         L_loc, linv_loc = _factor_body(
-            work, d, axis, block, D, Pl, Np, precision, interpret
+            work, d, axis, block, D, Pl, Np, precision
         )
         # value: alpha, quad, logdet
         y = _fwd_sub(L_loc, linv_loc, d, axis, Y_rep, block, D, Pl, Np, precision)
@@ -352,7 +346,6 @@ def make_sharded_lml(
     block: int = 512,
     jitter: float = 1e-6,
     precision=_HIGHEST,
-    interpret: Optional[bool] = None,
 ):
     """``lml(theta, X, Y) -> scalar`` with closed-form VJP, distributed.
 
@@ -367,7 +360,7 @@ def make_sharded_lml(
         return sharded_lml_value_and_grad(
             X, Y, family, theta["log_amp"], theta["log_ls"],
             theta["log_noise"], mesh=mesh, axis=axis, block=block,
-            jitter=jitter, precision=precision, interpret=interpret,
+            jitter=jitter, precision=precision,
         )
 
     @jax.custom_vjp
@@ -408,8 +401,7 @@ def fit_sharded(
     maxiter: int = 30,
     block: int = 512,
     jitter: float = 1e-10,
-    precision=None,
-    interpret: Optional[bool] = None,
+    precision=_HIGHEST,
 ):
     """Distributed L-BFGS hyperparameter fit; returns the fitted kernel and
     the final (theta, LML-trace) — conditioning at the optimum is the
@@ -440,13 +432,6 @@ def fit_sharded(
     Y2 = jnp.asarray(Y if Y.ndim == 2 else Y[:, None], jnp.float32)
     nd = X.shape[1]
 
-    if precision is None:
-        precision = (
-            jax.lax.Precision.HIGH
-            if jax.devices()[0].platform == "tpu"
-            else jax.lax.Precision.HIGHEST
-        )
-
     noise0 = white_noise_level(kernel)
     theta0 = {
         "log_amp": jnp.log(jnp.asarray(amp0, jnp.float32)),
@@ -473,7 +458,6 @@ def fit_sharded(
     lml = make_sharded_lml(
         fam, mesh, axis=axis, block=block,
         jitter=_eff_jitter(jnp.float32, jitter), precision=precision,
-        interpret=interpret,
     )
 
     def nll(theta):

@@ -21,7 +21,7 @@ if not logger.handlers:
     h = logging.StreamHandler()
     h.setFormatter(logging.Formatter("[%(asctime)s %(name)s %(levelname)s] %(message)s"))
     logger.addHandler(h)
-    logger.setLevel(os.environ.get("GPT_TPU_LOGLEVEL", "WARNING"))
+    logger.setLevel(os.environ.get("GPT_LOGLEVEL", "WARNING"))
 
 
 def get_logger(name: str = "gpt_tpu") -> logging.Logger:

@@ -3,7 +3,7 @@
 Compute parts (grid fields, Euler rollouts) are pure jitted functions —
 the reference's per-cell Python loops (``plot_utils.py:181-207``, the 10⁴
 GP predicts per figure) become one batched predict + one ``lax.scan``.
-Matplotlib is imported lazily so headless/TPU environments never pay for
+Matplotlib is imported lazily so headless environments never pay for
 it; every ``plot_*``/``draw_*`` helper degrades to a no-op if matplotlib
 is unavailable.
 """

@@ -84,7 +84,7 @@ def test_spiral_demo_generator():
 
 @requires_reference
 def test_batched_orientation_transport_parity():
-    """Orientation transport in the batched jitted path (VERDICT r4 #2):
+    """Orientation transport in the batched jitted path:
 
     * ``fit_and_transport(..., ori=...)`` must match the stateful wrapper's
       ``transport_orientation`` (parity route to the reference's

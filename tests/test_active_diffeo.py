@@ -72,8 +72,7 @@ def test_active_learning_wrapper_subsamples():
 
 def test_active_learning_blocked_fit_route():
     """use_blocked=True routes the subset hyperopt through the panel-LML
-    fit (fit_blocked) — the large-N production path, exercised here in
-    interpret mode at a small cap."""
+    fit (fit_blocked) — the large-N path, exercised here at a small cap."""
     N = 500
     X = (rng.rand(N, 2) * 4 - 2).astype(np.float32)
     Y = np.stack([np.sin(1.5 * X[:, 0]), np.cos(0.7 * X[:, 1])], 1).astype(
@@ -85,7 +84,7 @@ def test_active_learning_blocked_fit_route():
         + K.White(0.1, bounds=(1e-6, 10.0)),
         n_samples_max=256,
         use_blocked=True,
-        blocked_kwargs=dict(block=128, interpret=True, maxiter=10),
+        blocked_kwargs=dict(block=128, maxiter=10),
     )
     m.fit(X, Y)
     assert m.state.X.shape[0] == 256

@@ -153,7 +153,7 @@ def test_quaternion_to_matrix_matches_scipy():
 
 
 def test_from_rotation_matrix_iter_matches_numpy_eigh():
-    """The squaring-based batched Bar-Itzhack (the TPU ensemble path — no
+    """The squaring-based batched Bar-Itzhack (the ensemble path — no
     per-point eigh custom call) must match an independent numpy eigh
     implementation of Bar-Itzhack (2000) on rotations with up to 50%
     non-orthogonal perturbation."""

@@ -216,8 +216,7 @@ def test_batched_rollout_many_agents():
 
 
 # ---------------------------------------------------------------------------
-# n-D directional algebra (VERDICT r1 item 7: general-D parity with
-# obs_utils.py:86-418)
+# n-D directional algebra
 # ---------------------------------------------------------------------------
 
 import pytest as _pytest

@@ -1,5 +1,6 @@
-"""Batched transport engine: ensemble-last linalg, closed-form 2-D Kabsch,
-and fit_and_transport_batched parity against the vmapped reference path."""
+"""Batched transport engine: batched small SPD inverse, closed-form 2-D
+Kabsch, and fit_and_transport_batched parity against the vmapped
+reference path."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -7,11 +8,7 @@ import pytest
 
 from gaussian_process_transportation_tpu import kernels as K
 from gaussian_process_transportation_tpu.models import affine as affine_core
-from gaussian_process_transportation_tpu.ops.batched_linalg import (
-    cholesky_elast,
-    inv_lower_elast,
-    spd_inverse_elast,
-)
+from gaussian_process_transportation_tpu.ops.batched_linalg import spd_inverse
 from gaussian_process_transportation_tpu.transport import gpt as gpt_mod
 
 rng = np.random.RandomState(3)
@@ -19,27 +16,27 @@ rng = np.random.RandomState(3)
 
 def _spd_batch(n=13, E=6):
     A = rng.randn(E, n, n)
-    Ks = A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n)
-    return jnp.asarray(np.transpose(Ks, (1, 2, 0)))  # (n, n, E)
+    return jnp.asarray(A @ np.transpose(A, (0, 2, 1)) + n * np.eye(n))  # (E, n, n)
 
 
 def test_cholesky_elast_matches_jnp():
-    Ke = _spd_batch()
-    L = np.asarray(cholesky_elast(Ke))
-    ref = np.asarray(jnp.linalg.cholesky(jnp.transpose(Ke, (2, 0, 1))))
-    np.testing.assert_allclose(np.transpose(L, (2, 0, 1)), ref, rtol=1e-10, atol=1e-10)
+    """The batched factor equals a per-matrix Cholesky (float64)."""
+    K = _spd_batch()
+    L, _ = spd_inverse(K)
+    ref = np.stack([np.linalg.cholesky(k) for k in np.asarray(K)])
+    np.testing.assert_allclose(np.asarray(L), ref, rtol=1e-10, atol=1e-10)
 
 
 def test_inv_lower_and_spd_inverse():
-    Ke = _spd_batch()
-    L, Kinv = spd_inverse_elast(Ke)
-    Li = inv_lower_elast(L)
-    n, _, E = np.asarray(Ke).shape
-    for e in range(E):
-        Le = np.asarray(L)[:, :, e]
-        np.testing.assert_allclose(np.asarray(Li)[:, :, e] @ Le, np.eye(n), atol=1e-9)
+    K = _spd_batch()
+    L, Kinv = spd_inverse(K)
+    n = K.shape[-1]
+    for e in range(K.shape[0]):
         np.testing.assert_allclose(
-            np.asarray(Kinv)[:, :, e] @ np.asarray(Ke)[:, :, e], np.eye(n), atol=1e-8
+            np.asarray(Kinv)[e] @ np.asarray(K)[e], np.eye(n), atol=1e-8
+        )
+        np.testing.assert_allclose(
+            np.asarray(L)[e] @ np.asarray(L)[e].T, np.asarray(K)[e], atol=1e-8
         )
 
 
@@ -61,17 +58,23 @@ def test_fit_batched_2d_matches_svd_path():
 
 def test_fit_and_transport_batched_parity():
     """The batched engine must reproduce vmap(fit_and_transport) exactly
-    (same math, different layout/algorithms) on the real drawing data."""
-    data = np.load("/root/reference/example/2D/data/example.npz")
+    (same math, different layout/algorithms) on the bench's 2-D drawing
+    (demo curve, floor and new-floor distributions) with seeded targets."""
     from gaussian_process_transportation_tpu.utils.resample import resample
 
-    X = resample(jnp.asarray(data["demo"], jnp.float64), num_points=120)
-    S = resample(jnp.asarray(data["floor"], jnp.float64), num_points=20)
-    S1 = resample(jnp.asarray(data["newfloor"], jnp.float64), num_points=20)
+    t = np.linspace(0, 1, 400)
+    demo = np.stack([10 * t, 5 * np.sin(3 * t)], 1)
+    s = np.linspace(0, 1, 20)
+    floor = np.stack([10 * s, -2 + 0 * s], 1)
+    newfloor = np.stack([10 * s, -2 + 3 * np.sin(2 * s)], 1)
+    X = resample(jnp.asarray(demo, jnp.float64), num_points=120)
+    S = resample(jnp.asarray(floor, jnp.float64), num_points=20)
+    S1 = resample(jnp.asarray(newfloor, jnp.float64), num_points=20)
     dX = jnp.zeros_like(X).at[:-1].set(jnp.diff(X, axis=0))
     kern = K.Constant(10.0) * K.RBF(4.0 * jnp.ones(2)) + K.White(0.01)
     E = 5
-    targets = S1[None] + jnp.linspace(0.0, 1.0, E)[:, None, None]
+    shifts = np.random.default_rng(0).uniform(-1.0, 1.0, (E, 1, 2))
+    targets = S1[None] + jnp.asarray(shifts)
 
     ref = jax.vmap(lambda t: gpt_mod.fit_and_transport(kern, S, t, X, dX))(targets)
     got = gpt_mod.fit_and_transport_batched(kern, S, targets, X, dX)

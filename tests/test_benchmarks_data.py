@@ -177,9 +177,10 @@ def test_mann_whitney_ranking():
     assert ranked[0][0] == "good" and ranked[0][1] < ranked[1][1]
 
 
-def test_compare_methods_collects_cross_method_samples():
+def test_compare_methods_collects_cross_method_samples(tmp_path):
     """data_analysis_dataset.py data-collection half: same (source,
-    target) pairs for every method, five metric tables out."""
+    target) pairs for every method, five metric tables out — on a seeded
+    reach-target dataset in the reference file format."""
     from gaussian_process_transportation_tpu.benchmarks import (
         MultipleReferenceFramesGPT,
         MultipleReferenceFramesDMP,
@@ -190,7 +191,9 @@ def test_compare_methods_collects_cross_method_samples():
         "GPT": MultipleReferenceFramesGPT(optimizer=None),
         "DMP": MultipleReferenceFramesDMP(),
     }
-    out = compare_methods(methods=methods, number_repetitions=1)
+    path = str(tmp_path / "reach_target.npy")
+    np.save(path, datasets.make_reach_target(seed=0), allow_pickle=True)
+    out = compare_methods(methods=methods, number_repetitions=1, path=path)
     assert set(out) == {
         "Frechet Distance", "Area btw curves", "Dynamic Time Warping",
         "Final Position Error", "Final Orientation Error",

@@ -1,8 +1,8 @@
 """Goldens for the panel-form LML gradients (ops/blocked_lml.py).
 
-Everything runs the real panel algorithms in Pallas interpret mode on CPU
-and is checked against dense f64 linear algebra / autodiff — the same
-strategy as tests/test_blocked_chol.py.
+Everything runs the real panel algorithms on the CPU and is checked
+against dense f64 linear algebra / autodiff — the same strategy as
+tests/test_blocked_chol.py.
 """
 import math
 
@@ -59,7 +59,7 @@ def test_tri_inverse_panels_golden():
     rng = np.random.default_rng(0)
     n, B = 300, 128  # padding exercised: Np = 384
     Kd = _spd(n, rng)
-    ch = blocked_cholesky(jnp.asarray(Kd), block=B, interpret=True)
+    ch = blocked_cholesky(jnp.asarray(Kd), block=B)
     T = _assemble_lower(tri_inverse_panels(ch), n, B)
     L64 = np.linalg.cholesky(Kd.astype(np.float64))
     ref = np.linalg.inv(L64)
@@ -71,7 +71,7 @@ def test_kinv_panels_golden():
     rng = np.random.default_rng(1)
     n, B = 300, 128
     Kd = _spd(n, rng)
-    ch = blocked_cholesky(jnp.asarray(Kd), block=B, interpret=True)
+    ch = blocked_cholesky(jnp.asarray(Kd), block=B)
     Ki = _assemble_symmetric(kinv_panels(ch), n, B)
     ref = np.linalg.inv(Kd.astype(np.float64))
     err = np.abs(Ki - ref).max() / np.abs(ref).max()
@@ -125,7 +125,7 @@ def test_blocked_lml_value_and_grad_matches_dense_autodiff(family):
         theta["log_amp"].astype(jnp.float32),
         theta["log_ls"].astype(jnp.float32),
         theta["log_noise"].astype(jnp.float32),
-        jitter=jitter, block=128, precision=_HI, interpret=True,
+        jitter=jitter, block=128, precision=_HI,
     )
     assert abs(float(val) - float(ref_val)) < 2e-3 * abs(float(ref_val)) + 1e-2
     scale = max(
@@ -150,11 +150,11 @@ def test_custom_vjp_matches_value_and_grad():
         "log_ls": jnp.zeros((D,), jnp.float32),
         "log_noise": jnp.asarray(math.log(0.1), jnp.float32),
     }
-    lml = make_blocked_lml("rbf", jitter=1e-6, block=128, interpret=True)
+    lml = make_blocked_lml("rbf", jitter=1e-6, block=128)
     v1, g1 = jax.value_and_grad(lml)(theta, X, Y)
     v2, (ga, gl, gn) = blocked_lml_value_and_grad(
         X, Y, "rbf", theta["log_amp"], theta["log_ls"], theta["log_noise"],
-        jitter=1e-6, block=128, interpret=True,
+        jitter=1e-6, block=128,
     )
     assert np.allclose(float(v1), float(v2), rtol=1e-6)
     assert np.allclose(float(g1["log_amp"]), float(ga), rtol=1e-5, atol=1e-6)
@@ -168,7 +168,7 @@ def test_isotropic_lengthscale_grad_sums():
     n, D = 200, 3
     X = jnp.asarray(rng.standard_normal((n, D)), jnp.float32)
     Y = jnp.asarray(rng.standard_normal((n, 1)), jnp.float32)
-    lml = make_blocked_lml("rbf", jitter=1e-6, block=128, interpret=True)
+    lml = make_blocked_lml("rbf", jitter=1e-6, block=128)
     t_iso = {
         "log_amp": jnp.asarray(0.0, jnp.float32),
         "log_ls": jnp.asarray(0.2, jnp.float32),  # scalar, shared over D
@@ -183,13 +183,11 @@ def test_isotropic_lengthscale_grad_sums():
     )
 
 
-@pytest.mark.tpu
-def test_blocked_lml_grad_on_tpu_matches_f64():
-    """Real-hardware golden: the HIGH-precision (bf16x3 TRSM/SYRK) panel
-    LML value and gradient at N=4096 must match the host f64 dense
-    autodiff reference within the f32 conditioning limit."""
-    if jax.default_backend() != "tpu":
-        pytest.skip("no TPU")
+@pytest.mark.gpu
+def test_blocked_lml_grad_on_gpu_matches_f64(gpu):
+    """GPU golden: the panel LML value and gradient at N=4096 (f32,
+    HIGHEST) must match the host f64 dense reference within the f32
+    conditioning limit."""
     rng = np.random.default_rng(7)
     n, D = 4096, 3
     X = rng.standard_normal((n, D)).astype(np.float32)
@@ -197,7 +195,7 @@ def test_blocked_lml_grad_on_tpu_matches_f64():
         np.float32
     )
     jitter = 1e-6
-    # Dense f64 numpy reference on the host (x64 is off in the tpu test
+    # Dense f64 numpy reference on the host (x64 is off in the gpu test
     # tier, so no jax f64 here).  Uses the textbook trace identity — the
     # identity itself is validated against dense autodiff in the CPU tier
     # (test_blocked_lml_value_and_grad_matches_dense_autodiff); this golden
@@ -242,7 +240,6 @@ def test_blocked_lml_grad_on_tpu_matches_f64():
         lambda Xs, Ys, t: blocked_lml_value_and_grad(
             Xs, Ys, "rbf", t["log_amp"], t["log_ls"], t["log_noise"],
             jitter=jitter, block=512,
-            precision=jax.lax.Precision.HIGH, interpret=False,
         )
     )(jnp.asarray(X), jnp.asarray(Y), theta32)
     assert abs(float(val) - float(ref_val)) < 5e-3 * abs(float(ref_val))
@@ -272,7 +269,6 @@ def test_fit_blocked_improves_and_matches_scipy_fit():
     )
     gp = exact_gp.fit_blocked(
         kernel, jnp.asarray(X), jnp.asarray(Y), maxiter=25, block=128,
-        interpret=True,
     )
     # fitted state is a working posterior (panel form, no dense L)
     assert gp.chol is not None and gp.L is None

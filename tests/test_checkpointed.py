@@ -96,12 +96,12 @@ def test_resume_after_kill(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Fused production sampler (hmc_batched) — VERDICT r4 #6
+# Fused production sampler (hmc_batched)
 # ---------------------------------------------------------------------------
 
 def _lp_and_grad_batched(q):
     """Ensemble-last analytic value+grad of the same quartic target:
-    q (T, E) -> (lp (E,), grad (T, E)) — stands in for the fused Pallas
+    q (T, E) -> (lp (E,), grad (T, E)) — stands in for the batched
     LML kernel, including the finite-guards the production wrappers apply
     (`samplers._fused_local_runner`): an unguarded diverging leapfrog can
     reach q=inf -> lp=NaN -> NaN step-size adaptation."""
@@ -158,7 +158,7 @@ def test_batched_segmented_matches_monolithic():
 def test_batched_resume_after_kill(tmp_path):
     """Kill the fused checkpointed run after its first sampling segment;
     the restarted run must resume from the checkpoint and produce the
-    bit-identical final stream (VERDICT r4 #6 'Done =' criterion)."""
+    bit-identical final stream."""
     from gaussian_process_transportation_tpu.parallel.checkpointed import (
         run_hmc_batched_checkpointed,
     )

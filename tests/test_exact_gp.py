@@ -202,7 +202,7 @@ def test_sample_y_statistics():
 
 
 def test_vmapped_conditioning():
-    """An ensemble of GPs = one batched conditioning (the TPU unit of data
+    """An ensemble of GPs = one batched conditioning (the unit of data
     parallelism, replacing the reference's Python ensemble loops)."""
     mine, _ = make_pair()
     Ys = jnp.asarray(np.stack([Y + 0.1 * i for i in range(5)]))

@@ -1,8 +1,8 @@
 """Mixed-precision blocked Cholesky + iterative refinement (ops/mixed_linalg).
 
 CPU ignores jax.lax.Precision, so the low-precision error profile is
-exercised via ``emulate_bf16`` (panel rounded through bfloat16 — the same
-perturbation the TPU's single-pass MXU applies to the trailing update).
+exercised via ``emulate_bf16`` (panel rounded through bfloat16 before the
+trailing update).
 """
 import jax
 import jax.numpy as jnp
@@ -78,7 +78,7 @@ def test_gram_chol_solve_mixed_end_to_end():
 
 
 def test_blocked_cholesky_jits_and_grids():
-    # must stay a single traceable program (the whole point on TPU)
+    # must stay a single traceable program
     Km, _, _ = _spd(256, dtype=jnp.float32)
     f = jax.jit(lambda A: mx.blocked_cholesky(A, block=64))
     L = f(Km)

@@ -1,5 +1,5 @@
 """≥2-process jax.distributed execution test (BASELINE scaling-gate
-correctness witness; VERDICT r1 item 4).
+correctness witness).
 
 Launches two real OS processes on localhost, each with 4 virtual CPU
 devices, forming one 8-device cluster.  The worker

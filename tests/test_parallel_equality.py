@@ -1,5 +1,5 @@
 """Sharded-vs-unsharded numerical equality on the 8-device mesh
-(VERDICT r1 item 5: sharding must be value-preserving, not just
+(sharding must be value-preserving, not just
 shape-preserving)."""
 import jax
 import jax.numpy as jnp

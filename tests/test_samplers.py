@@ -115,7 +115,7 @@ def test_posterior_predictive_from_chains():
 def test_nuts_batched_recovers_gaussian():
     """Ensemble-last batched NUTS (the fused production path's kernel)
     draws from the right target: diagonal Gaussian recovered to MC error,
-    matching the generic per-chain nuts semantics (VERDICT r4 #5)."""
+    matching the generic per-chain nuts semantics."""
     mu = np.array([1.0, -2.0, 0.5])
     sigma = np.array([0.5, 2.0, 1.0])
     muj = jnp.asarray(mu)[:, None]

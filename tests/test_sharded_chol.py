@@ -61,7 +61,7 @@ def test_sharded_matches_f64_golden(n_dev, n):
 def test_sharded_equals_single_device_blocked():
     """The distributed factorization must agree with ops.blocked_chol's
     single-device panel path to f32 round-off (same algorithm, same
-    Pallas diagonal kernel — only the layout and collectives differ)."""
+    diagonal-block factor — only the layout and collectives differ)."""
     n = 640
     X = rng.randn(n, 3).astype(np.float32)
     Y = rng.randn(n, 1).astype(np.float32)

@@ -155,7 +155,7 @@ def test_natgrad_converges_faster_per_pass():
 
 @pytest.mark.slow
 def test_natgrad_collapsed_posterior_matches_adam_converged():
-    """VERDICT r1 item 8: on a converged run the two optimizers must agree —
+    """On a converged run the two optimizers must agree —
     the natural-gradient path's collapsed posterior is the same posterior,
     not merely a better ELBO."""
     N = 300

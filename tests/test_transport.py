@@ -168,7 +168,7 @@ def test_vmapped_multi_target_transport():
 
 def test_batched_medium_n_scan_blocked_route_matches_vmap():
     """fit_and_transport_batched at n >= 768 routes through scan-over-
-    members with Pallas-panel conditioning (VERDICT r3 #4) — outputs must
+    members with panel conditioning — outputs must
     match the per-member dense pipeline at f32 accuracy."""
     rng2 = np.random.RandomState(7)
     n, d, nq, E = 768, 2, 60, 2

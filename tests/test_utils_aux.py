@@ -74,8 +74,8 @@ def test_metrics_recorder(tmp_path):
 
 
 def test_package_sets_accurate_matmul_precision():
-    """Importing the package must pin float32-accurate matmuls: TPU bf16
-    MXU passes corrupt the Gram matrix into non-PSD (Cholesky NaNs)."""
+    """Importing the package must pin float32-accurate matmuls: TF32/bf16
+    passes corrupt the Gram matrix into non-PSD (Cholesky NaNs)."""
     import gaussian_process_transportation_tpu  # noqa: F401
 
     assert str(jax.config.jax_default_matmul_precision) == "highest"
